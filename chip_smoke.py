@@ -1,0 +1,496 @@
+#!/usr/bin/env python3
+"""Drive fastquick_tpu_torch's ``align --device_qc`` on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # all phases, one card, ~10 minutes
+
+Phases (any failure raises and the script exits non-zero):
+
+1. card: the card's name and power limit (nvidia-smi), the kernels' build
+   from fastquick_tpu_torch/csrc (nvcc, sm_90a) and its time;
+2. kernels: each CUDA kernel against its plain PyTorch version on the card,
+   exact integer equality, at the main path's shapes, over an FM index of
+   a seeded random 6.5 Mbp text (the production panel's size): width on
+   65,536 units of 160 codes, search on 4,096 reads of 150 bp, SW on 2,048
+   jobs of 640 x 128; kernel and plain times by CUDA events; the search
+   kernel is also timed alone on one full chunk of 32,768 reads;
+3. small world: the port's ``index`` + ``align --device_qc`` on
+   testing/synthworld.build_synth_pe_world, byte-identical on all 12
+   product files to the port's ``align --engine host``;
+4. production: the world of tools/stress_production_scale.py (10,000
+   markers, 100,000 read pairs of 150 bp) from --seed; ``align
+   --device_qc`` byte-identical to ``align --engine native``; phase
+   times, reads a second, fallback share (fails above a quarter).  The
+   kernel launch counts are zeroed right before this device run and read
+   right after it.
+
+The last two lines of stdout are the kernels line and
+{"ok": true, "device": {...}}, printed only when phases 2-4 all ran
+(``--phases`` picks a subset for debugging).  Numbers and logs also go to
+chiprun_out/chip_smoke/.  Without CUDA, or outside a checkout of the
+repository, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import filecmp
+import json
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+OUT = REPO / "chiprun_out" / "chip_smoke"
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
+# bytes/s and fp32 operations/s outside the tensor cores.  The kernels do
+# 32-bit integer work, whose rate on Hopper is at most the fp32 rate, so
+# time = ops / FP32_OPS is a valid lower bound.
+HBM_BYTES_S = 3.35e12
+FP32_OPS_S = 67e12
+# integer operations per unit of work, counted from the kernels' inner
+# loops (csrc/*_body.cuh): a width step is two single-base rank queries
+# (8 words x ~7 ops + ~15 addressing each); a search step is at least one
+# such pair (a chain step; expansions cost ~4x more); an SW cell ~12 ops
+OPS_WIDTH_STEP = 150
+OPS_SEARCH_STEP_MIN = 150
+OPS_SW_CELL = 12
+
+ALL_OUTPUTS = ("Summary", "DepthDist", "GCDist", "EmpRepDist",
+               "EmpCycleDist", "RawInsertSizeDist", "AdjustedInsertSizeDist",
+               "SexChromInfo", "Pileup", "vcf", "InsertSizeTable", "bam")
+
+ALL_PHASES = ("kernels", "small", "production")  # after the card phase
+
+KERNELS = {
+    "width": ("fastquick_tpu_torch/csrc/width.cu",
+              "fastquick_tpu/ops/search_pallas.py:1603"),
+    "search": ("fastquick_tpu_torch/csrc/search.cu",
+               "fastquick_tpu/ops/search_pallas.py:773"),
+    "sw": ("fastquick_tpu_torch/csrc/sw.cu",
+           "fastquick_tpu/ops/sw_pallas.py:52"),
+}
+
+
+def log(msg: str) -> None:
+    print(f"[{time.strftime('%H:%M:%S')}] {msg}", flush=True)
+
+
+def cuda_ms(fn, reps: int, setup=None) -> float:
+    """Mean device time of fn() in ms over `reps` runs (after a warm-up),
+    by CUDA events; setup(i) runs outside the timed region."""
+    import torch
+
+    args = setup(-1) if setup else ()
+    fn(*args)
+    torch.cuda.synchronize()
+    total = 0.0
+    for i in range(reps):
+        args = setup(i) if setup else ()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(*args)
+        b.record()
+        torch.cuda.synchronize()
+        total += a.elapsed_time(b)
+    return total / reps
+
+
+def bound(bytes_: float, ops: float) -> tuple[float, str]:
+    tb, to = bytes_ / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+# ------------------------------------------------------------- phase 1
+
+
+def phase_card() -> dict:
+    import torch
+
+    from fastquick_tpu_torch.kernels import build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    build.cuda_library()
+    dt = time.perf_counter() - t0
+    log(f"kernels built in {dt:.1f}s ({build.build_info.get('cuda_dir')})")
+    ptx = Path(build.build_info["cuda_dir"], "ptxas.txt")
+    if ptx.exists():
+        for line in ptx.read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log("ptxas: " + line.strip())
+    return dict(card=card, kind=torch.cuda.get_device_name(0),
+                count=torch.cuda.device_count(), build_s=dt)
+
+
+# ------------------------------------------------------------- phase 2
+
+
+class _Read:
+    """The two fields pack_chunk reads: length and reversed codes."""
+
+    def __init__(self, codes):
+        self.len = len(codes)
+        self.seq = codes[::-1].copy()
+
+
+def _draw_reads(text, n, read_len, rng):
+    """Reads in the mix of tests/test_batch_engine.py: exact, 1-2
+    mismatches, reverse complement, 1-base deletion, 1-base insertion,
+    junk; one in twenty also gets an N."""
+    import numpy as np
+
+    out = []
+    for r in range(n):
+        s = int(rng.integers(0, len(text) - read_len - 1))
+        codes = text[s:s + read_len].copy()
+        kind = r % 6
+        if kind == 1:
+            for _ in range(int(rng.integers(1, 3))):
+                p = int(rng.integers(0, read_len))
+                codes[p] = (codes[p] + int(rng.integers(1, 4))) % 4
+        elif kind == 2:
+            codes = (3 - codes)[::-1].copy()
+        elif kind == 3:
+            mid = read_len // 2
+            codes = np.concatenate([text[s:s + mid],
+                                    text[s + mid + 1:s + read_len + 1]])
+        elif kind == 4:
+            mid = read_len // 2
+            codes = np.concatenate([text[s:s + mid],
+                                    rng.integers(0, 4, 1).astype(np.uint8),
+                                    text[s + mid:s + read_len - 1]])
+        elif kind == 5:
+            codes = rng.integers(0, 4, read_len).astype(np.uint8)
+        if r % 20 == 7:
+            codes[int(rng.integers(0, read_len))] = 4
+        out.append(codes.astype(np.uint8))
+    return out
+
+
+def phase_kernels(seed: int, dev: str = "cuda", text_len: int = 6_500_000,
+                  M: int = 65536, n_reads: int = 4096,
+                  chunk_reads: int = 32768, n_sw: int = 2048) -> dict:
+    import numpy as np
+    import torch
+
+    from fastquick_tpu_torch.align.opts import GapOpt
+    from fastquick_tpu_torch.index.fmindex import FMIndex
+    from fastquick_tpu_torch.kernels import build
+    from fastquick_tpu_torch.ops.batch_search import chunk_inputs, pack_chunk
+    from fastquick_tpu_torch.ops.fm import DeviceFM, cal_width_planes
+    from fastquick_tpu_torch.ops.search_kernels import (
+        resident_search,
+        search_plain,
+        width,
+    )
+    from fastquick_tpu_torch.ops.sw_kernels import (
+        sw_forward_batch,
+        sw_forward_plain,
+    )
+
+    dev = torch.device(dev)
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    text = rng.integers(0, 4, text_len).astype(np.uint8)
+    fm = DeviceFM.build(FMIndex.build(text), FMIndex.build(text[::-1].copy()),
+                        dev)
+    tab_bytes = fm.kernel_table().numel() * 4
+    log(f"{text_len / 1e6:.1f} Mbp FM index built in "
+        f"{time.perf_counter() - t0:.1f}s "
+        f"(kernel table {tab_bytes / 1e6:.1f} MB)")
+    res = {}
+
+    # ---- width: M units x 160 ----
+    L = 160
+    units_np = np.full((M, L), 4, np.uint8)
+    for m, c in enumerate(_draw_reads(text, M, 150, rng)):
+        units_np[m, :len(c)] = c[:L]
+    units = torch.from_numpy(units_np).to(dev)
+    sel = torch.from_numpy((np.arange(M) % 2).astype(np.int32)).to(dev)
+    w_k, b_k = width(fm, units, sel)
+    w_p, b_p = cal_width_planes(fm, sel, units)
+    torch.cuda.synchronize()
+    err = max(int((w_k - w_p).abs().max()), int((b_k - b_p).abs().max()))
+    if err:
+        raise AssertionError(f"width kernel != plain (max abs err {err})")
+    ms = cuda_ms(lambda: width(fm, units, sel), 5)
+    plain_ms = cuda_ms(lambda: cal_width_planes(fm, sel, units), 1)
+    bms, by = bound(M * L + 4 * M + 8 * M * L + tab_bytes,
+                    M * L * OPS_WIDTH_STEP)
+    res["width"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                        bound_ms=bms, bound_by=by)
+    log(f"width  M={M} L={L}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+        f"bound {bms:.3f} ms ({by}), equal")
+
+    # ---- search: n_reads reads x 150 bp ----
+    reads = [_Read(c) for c in _draw_reads(text, n_reads, 150, rng)]
+    opt = GapOpt()
+    packed, aux, P = pack_chunk(reads, opt, 1024)
+    inp = chunk_inputs(fm, torch.from_numpy(packed).to(dev),
+                       torch.from_numpy(aux).to(dev), P)
+    widths0 = inp.pop("widths")
+    k_out = resident_search(fm, P, widths=widths0.clone(), **inp)
+    p_out = search_plain(fm, P, widths=widths0.clone(), **inp)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("n_aln", "alns", "fb", "steps"), k_out, p_out):
+        if not torch.equal(a, b):
+            bad = (a != b).reshape(a.shape[0], -1).any(1).nonzero()[:5]
+            raise AssertionError(f"search kernel != plain in {name}, reads "
+                                 f"{bad.flatten().tolist()}")
+    N = packed.shape[0]
+    n_fb = int((k_out[2][:len(reads)] != 0).sum())
+    steps = int(k_out[3].long().sum())
+    clones = [widths0.clone() for _ in range(4)]
+    ms = cuda_ms(lambda w: resident_search(fm, P, widths=w, **inp), 3,
+                 setup=lambda i: (clones[i + 1],))
+    t0 = time.perf_counter()
+    search_plain(fm, P, widths=widths0.clone(), **inp)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    # what the search must move: its inputs (codes, four scalars, the
+    # width rows of both strands and of the seeds, the table once), three
+    # scalars out per read and the hit rows it emitted (n_aln of them)
+    in_bytes = (N * P.L + 16 * N + 2 * N * (P.L + 1) * 8
+                + 2 * N * (P.SL + 1) * 8 + tab_bytes)
+    out_bytes = 12 * N + 12 * int(k_out[0].clamp(0, 48).long().sum())
+    bms, by = bound(in_bytes + out_bytes, steps * OPS_SEARCH_STEP_MIN)
+    res["search"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0,
+                         bound_ms=bms, bound_by=by, steps=steps,
+                         fallback=n_fb, reads=len(reads))
+    log(f"search N={len(reads)} L={P.L}: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms, bound {bms:.3f} ms ({by}), {steps} steps, "
+        f"{n_fb} fallback reads, equal")
+
+    # the kernel alone at one full main-path chunk (BatchEngine.max_batch
+    # reads); its plain version would take minutes here
+    reads = [_Read(c) for c in _draw_reads(text, chunk_reads, 150, rng)]
+    packed, aux, P = pack_chunk(reads, opt, 1024)
+    inp = chunk_inputs(fm, torch.from_numpy(packed).to(dev),
+                       torch.from_numpy(aux).to(dev), P)
+    widths0 = inp.pop("widths")
+    clones = [widths0.clone() for _ in range(4)]
+    out = resident_search(fm, P, widths=clones[0], **inp)
+    steps = int(out[3].long().sum())
+    ms = cuda_ms(lambda w: resident_search(fm, P, widths=w, **inp), 3,
+                 setup=lambda i: (clones[i + 1],))
+    res["search"].update(chunk_reads=chunk_reads, chunk_ms=ms,
+                         chunk_steps=steps,
+                         chunk_max_steps=int(out[3].max()))
+    log(f"search N={chunk_reads} (one chunk): kernel {ms:.3f} ms, {steps} "
+        f"steps, longest read {int(out[3].max())} steps")
+    del inp, widths0, clones, out
+
+    # ---- SW: n_sw jobs, RL = 640, QL = 128 ----
+    B, RL, QL = n_sw, 640, 128
+    refs = rng.integers(0, 4, (B, RL)).astype(np.uint8)
+    qs = rng.integers(0, 4, (B, QL)).astype(np.uint8)
+    rl = rng.integers(560, RL + 1, B).astype(np.int32)
+    ql = rng.integers(96, QL + 1, B).astype(np.int32)
+    for b in range(0, B, 2):  # planted local matches with a few errors
+        s = int(rng.integers(0, rl[b] - ql[b]))
+        q = refs[b, s:s + ql[b]].copy()
+        for _ in range(int(rng.integers(0, 5))):
+            q[int(rng.integers(0, ql[b]))] = int(rng.integers(0, 5))
+        qs[b, :ql[b]] = q
+    args = [torch.from_numpy(a).to(dev) for a in (refs, qs, rl, ql)]
+    o_k = sw_forward_batch(*args)
+    o_p = sw_forward_plain(*args)
+    torch.cuda.synchronize()
+    err = int((o_k - o_p).abs().max())
+    if err:
+        raise AssertionError(f"SW kernel != plain (max abs err {err})")
+    ms = cuda_ms(lambda: sw_forward_batch(*args), 3)
+    plain_ms = cuda_ms(lambda: sw_forward_plain(*args), 1)
+    cells = int((rl.astype(np.int64) * ql).sum())
+    bms, by = bound(B * (RL + QL) + 8 * B + 16 * B, cells * OPS_SW_CELL)
+    res["sw"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                     bound_ms=bms, bound_by=by, cells=cells,
+                     planted_best=float(o_k[0::2, 0].float().mean()))
+    log(f"sw     B={B} {RL}x{QL}: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms, bound {bms:.3f} ms ({by}), equal")
+    build.reset_launch_counts()
+    return res
+
+
+# ----------------------------------------------------------- phases 3-4
+
+
+def _align(argv: list[str], logf) -> dict:
+    from fastquick_tpu_torch.align import driver
+    from fastquick_tpu_torch.cli import main
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(logf):
+        rc = main(["align"] + argv)
+    if rc != 0:
+        raise RuntimeError(f"align {' '.join(argv)} exited {rc}")
+    st = dict(driver.LAST_RUN_STATS)
+    st["wall_s"] = time.perf_counter() - t0
+    return st
+
+
+def _same_outputs(a: str, b: str) -> None:
+    for sfx in ALL_OUTPUTS:
+        fa, fb = Path(f"{a}.{sfx}"), Path(f"{b}.{sfx}")
+        if not (fa.exists() and fb.exists()):
+            raise AssertionError(f"missing product file .{sfx}")
+        if not filecmp.cmp(fa, fb, shallow=False):
+            raise AssertionError(f".{sfx} differs: {fa} vs {fb}")
+
+
+def phase_small(work: Path, logf) -> dict:
+    from fastquick_tpu_torch.kernels import build
+    from fastquick_tpu_torch.testing.synthworld import build_synth_pe_world
+
+    d = work / "small"
+    d.mkdir()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(logf):
+        w = build_synth_pe_world(d)
+    log(f"small world: {w['n_reads']} reads, index in "
+        f"{time.perf_counter() - t0:.1f}s")
+    common = ["--fastq_1", w["fq1"], "--fastq_2", w["fq2"],
+              "--index_prefix", w["idx_prefix"]]
+    build.reset_launch_counts()
+    dev = _align(common + ["--out_prefix", str(d / "dev"), "--device_qc"],
+                 logf)
+    launches = dict(build.launch_counts)
+    host = _align(common + ["--out_prefix", str(d / "host"),
+                            "--engine", "host"], logf)
+    _same_outputs(str(d / "host"), str(d / "dev"))
+    log(f"small world: device {dev['wall_s']:.1f}s vs host "
+        f"{host['wall_s']:.1f}s, 12 product files byte-identical; "
+        f"launches {launches}; fallback {dev['fallback']}/"
+        f"{dev['searched']} {dev['fb_causes']}")
+    return dict(reads=w["n_reads"], device=dev, host=host,
+                launches=launches)
+
+
+def phase_production(work: Path, logf, seed: int, pairs: int,
+                     **world_kw) -> dict:
+    from fastquick_tpu_torch.kernels import build
+    from fastquick_tpu_torch.testing.synthworld import build_production_world
+
+    d = work / "prod"
+    d.mkdir()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(logf):
+        w = build_production_world(d, seed=seed, n_pairs=pairs,
+                                   **world_kw)
+    t_world = time.perf_counter() - t0
+    cut = " (cut from 100,000)" if pairs < 100_000 else ""
+    log(f"production world: {w['genome_len'] / 1e6:.1f} Mbp genome, "
+        f"10,000 markers, {pairs} read pairs{cut}; world + index built in "
+        f"{t_world:.1f}s")
+    common = ["--fastq_1", w["fq1"], "--fastq_2", w["fq2"],
+              "--index_prefix", w["idx_prefix"]]
+    build.reset_launch_counts()
+    dev = _align(common + ["--out_prefix", str(d / "dev"), "--device_qc"],
+                 logf)
+    launches = dict(build.launch_counts)
+    nat = _align(common + ["--out_prefix", str(d / "nat"),
+                           "--engine", "native"], logf)
+    _same_outputs(str(d / "nat"), str(d / "dev"))
+    share = dev["fallback"] / max(dev["searched"], 1)
+    rps = w["n_reads"] / dev["wall_s"]
+    log(f"production: device_qc {dev['wall_s']:.1f}s ({rps:.0f} reads/s), "
+        f"native {nat['wall_s']:.1f}s ({w['n_reads'] / nat['wall_s']:.0f} "
+        f"reads/s); 12 product files byte-identical")
+    log("production device phases: " + ", ".join(
+        f"{k} {v:.2f}s" for k, v in sorted(dev["stage_t"].items(),
+                                           key=lambda kv: -kv[1])))
+    log("production native phases: " + ", ".join(
+        f"{k} {v:.2f}s" for k, v in sorted(nat["stage_t"].items(),
+                                           key=lambda kv: -kv[1])))
+    log(f"production fallback: {dev['fallback']}/{dev['searched']} searched "
+        f"reads ({100 * share:.2f}%), causes {dev['fb_causes']}; launches "
+        f"{launches}")
+    if share > 0.25:
+        raise AssertionError(f"fallback share {share:.3f} above 0.25")
+    return dict(reads=w["n_reads"], pairs=pairs, device=dev, native=nat,
+                reads_per_s=rps, native_reads_per_s=w["n_reads"]
+                / nat["wall_s"], fallback_share=share, launches=launches,
+                world_s=t_world)
+
+
+# ----------------------------------------------------------------- main
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(ALL_PHASES),
+                    help="comma list of kernels,small,production (the card "
+                    "phase always runs); the kernels and ok lines are printed "
+                    "only when all of them ran")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--pairs", type=int, default=100_000,
+                    help="read pairs of the production world")
+    args = ap.parse_args()
+    phases = args.phases.split(",")
+
+    if not (REPO / "fastquick_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke.py must run from a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch.cuda.is_available() is False: no GPU to run on",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    OUT.mkdir(parents=True, exist_ok=True)
+    (REPO / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=REPO / "build"))
+    result: dict = {}
+    try:
+        with open(OUT / "align.log", "w") as logf:
+            result["card"] = phase_card()
+            if "kernels" in phases:
+                result["kernels"] = phase_kernels(args.seed)
+            if "small" in phases:
+                result["small"] = phase_small(work, logf)
+            if "production" in phases:
+                result["production"] = phase_production(
+                    work, logf, args.seed, args.pairs)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        (OUT / "result.json").write_text(json.dumps(result, indent=1))
+
+    if set(ALL_PHASES) - set(phases):
+        # the kernels and ok lines carry numbers of every phase
+        log(f"partial run ({args.phases}): no kernels or ok line")
+        return 0
+    launches = result["production"]["launches"]
+    missing = [k for k in KERNELS if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"main path launched no {missing} kernel")
+    line = []
+    for name, (src, tpu) in KERNELS.items():
+        k = result["kernels"][name]
+        line.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": tpu, "launches": launches[name],
+                     "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                     "bound_by": k["bound_by"], "library_ms": None})
+    print(json.dumps({"kernels": line}), flush=True)
+    card = result["card"]
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": card["kind"], "count": card["count"]}}),
+        flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

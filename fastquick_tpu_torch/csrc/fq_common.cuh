@@ -1,0 +1,111 @@
+// Shared pieces of the port's kernels: the host/device qualifier, popcount
+// and the FM-index rank query over DeviceFM.kernel_table().
+//
+// Every per-item body in this directory is written once as FQ_HD functions:
+// nvcc builds them into the sm_90a kernels (width.cu, search.cu, sw.cu) and
+// g++ builds the same bodies into a small host library (host_kernels.cpp)
+// that the CPU tests hold against the plain PyTorch versions.
+#pragma once
+
+#include <stdint.h>
+
+#if defined(__CUDACC__)
+#define FQ_HD __host__ __device__ __forceinline__
+#else
+#define FQ_HD static inline
+#endif
+
+FQ_HD int fq_popc(uint32_t x) {
+#if defined(__CUDA_ARCH__)
+  return __popc(x);
+#else
+  return __builtin_popcount(x);
+#endif
+}
+
+// index of the lowest set bit of a nonzero word
+FQ_HD int fq_ctz(uint32_t x) {
+#if defined(__CUDA_ARCH__)
+  return __ffs(x) - 1;
+#else
+  return __builtin_ctz(x);
+#endif
+}
+
+FQ_HD int fq_min(int a, int b) { return a < b ? a : b; }
+FQ_HD int fq_max(int a, int b) { return a > b ? a : b; }
+FQ_HD int fq_clamp(int x, int lo, int hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// Kernel view of a DeviceFM: `tab` holds 2 * nbp rows of 16 int32
+// [occ0..3, word0..7, pad x4] (forward index rows first), each word
+// packing 16 BWT bases at bits 2 * (15 - j).
+struct FmView {
+  const int32_t* tab;
+  int n, nbp;
+  int primary[2];
+  int L2[2][4];
+};
+
+// hp = DeviceFM.host_params(): [n, nbp, primary0, primary1, L2 fwd x4,
+// L2 rev x4]
+FQ_HD FmView fm_view(const int32_t* tab, const int32_t* hp) {
+  FmView f;
+  f.tab = tab;
+  f.n = hp[0];
+  f.nbp = hp[1];
+  f.primary[0] = hp[2];
+  f.primary[1] = hp[3];
+  for (int s = 0; s < 2; ++s)
+    for (int c = 0; c < 4; ++c) f.L2[s][c] = hp[4 + 4 * s + c];
+  return f;
+}
+
+// Row of the Occ block holding BWT row bound k + 1 of index `sel`, loaded
+// into r[0..11] (occ[4], words[8]); returns the bases of the block to
+// count (bwt_occ: rows [0..k], sentinel row removed).
+FQ_HD int fm_load(const FmView& fm, int sel, int k, int32_t r[12]) {
+  int kk = k + 1;
+  int kp = kk - (kk > fm.primary[sel] ? 1 : 0);
+  kp = fq_clamp(kp, 0, fm.n);
+  const int32_t* row = fm.tab + ((int64_t)sel * fm.nbp + (kp >> 7)) * 16;
+#if defined(__CUDA_ARCH__)
+  const int4* q = reinterpret_cast<const int4*>(row);
+  int4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2);
+  r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w;
+  r[4] = b.x; r[5] = b.y; r[6] = b.z; r[7] = b.w;
+  r[8] = c.x; r[9] = c.y; r[10] = c.z; r[11] = c.w;
+#else
+  for (int i = 0; i < 12; ++i) r[i] = row[i];
+#endif
+  return kp & 127;
+}
+
+// occ of base c in the first `rem` bases of the loaded block, plus the
+// block checkpoint (2-bit equality masks + popcount, bwt.h __occ_aux)
+FQ_HD int fm_count(const int32_t r[12], int rem, int c) {
+  const uint32_t pat = (uint32_t)c * 0x55555555u;  // c repeated 16 times
+  int cnt = r[c];
+  const int nw = (rem + 15) >> 4;
+  for (int w = 0; w < nw; ++w) {
+    const int p = fq_min(rem - 16 * w, 16);
+    const uint32_t mask = p >= 16 ? 0xFFFFFFFFu : (0xFFFFFFFFu << (32 - 2 * p));
+    const uint32_t x = (uint32_t)r[4 + w] ^ pat;
+    const uint32_t y = x | (x >> 1);
+    cnt += fq_popc(~y & 0x55555555u & mask);
+  }
+  return cnt;
+}
+
+FQ_HD int fm_occ1(const FmView& fm, int sel, int k, int c) {
+  int32_t r[12];
+  const int rem = fm_load(fm, sel, k, r);
+  return fm_count(r, rem, c);
+}
+
+FQ_HD void fm_occ4(const FmView& fm, int sel, int k, int out[4]) {
+  int32_t r[12];
+  const int rem = fm_load(fm, sel, k, r);
+  for (int c = 0; c < 4; ++c) out[c] = fm_count(r, rem, c);
+}

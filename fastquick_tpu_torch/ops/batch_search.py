@@ -1,0 +1,276 @@
+"""Batched inexact FM search engine with an exact host redo of fallbacks.
+
+Counterpart of fastquick_tpu/ops/batch_search.py:834-1113 (BatchEngine).
+A chunk of reads goes to the device as nibble-packed reversed codes plus
+one [len, md, use_seed] aux array; there:
+
+1. the width kernel computes bwt_cal_width for both strands of every read
+   and of its seed (ops/search_kernels.width);
+2. the search kernel runs bwt_match_gap for every read
+   (ops/search_kernels.resident_search);
+3. ``compact_hits`` packs the hit rows densely, so only about one row per
+   read comes back to the host.
+
+Reads the kernel cannot finish within its bounds (pool, score buckets,
+A_MAX hits, step cap, compacted-buffer size) carry FB_* cause bits and are
+redone by the exact native (or host) engine on a thread, so every result
+is exact.  That redo is part of the algorithm; it is counted and reported
+with its causes.  A kernel failure raises: there is no retry on another
+path.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import numpy as np
+import torch
+
+from ..align.core import Aln
+from ..align.engine import HostEngine
+from ..align.opts import GapOpt, bwa_cal_maxdiff
+from ..index.builder import ReducedIndex
+from .fm import DeviceFM, width_finalize
+from .search_kernels import (
+    A_MAX,
+    FB_D2H,
+    FB_LONG,
+    FB_NAMES,
+    NBUCK,
+    SearchParams,
+    resident_search,
+    width,
+)
+
+# ldp (a read position) is packed into the diff word above bit 18 and
+# unpacked with an arithmetic `d >> 18`: longer reads take the host engine
+MAX_READ_LEN = 8191
+DEF_POOL = 1024  # pool slots per read (fallback share falls off a cliff
+# below ~1000 slots on real read mixes)
+
+
+def compact_hits(n_aln: torch.Tensor, alns: torch.Tensor, fb: torch.Tensor,
+                 K_CAP: int):
+    """Dense (K_CAP, 3) hit-row buffer + per-read offsets from the
+    (N, A_MAX, 3) hit tensor.  Reads whose rows would spill past K_CAP are
+    flagged FB_D2H (and redone exactly on the host)."""
+    N = n_aln.shape[0]
+    dev = n_aln.device
+    n_eff = torch.where(fb != 0, 0, n_aln.clamp(max=A_MAX)).long()
+    ends = torch.cumsum(n_eff, 0)
+    offs = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                      ends[:-1]])
+    total = ends[-1].clamp(max=K_CAP)
+    j = torch.arange(K_CAP, dtype=torch.long, device=dev)
+    read = torch.searchsorted(ends, j, right=True)
+    read_c = read.clamp(0, N - 1)
+    hit = j - offs[read_c]
+    rows = alns[read_c, hit.clamp(0, A_MAX - 1)]
+    rows = torch.where((j < total)[:, None], rows, 0)
+    spill = (ends > K_CAP) & (n_eff > 0)
+    fb = fb | torch.where(spill, FB_D2H, 0).to(fb.dtype)
+    n_out = torch.where(spill, 0, n_eff)
+    return n_out, rows, offs, fb
+
+
+def pack_chunk(todo, opt: GapOpt, pool: int, step_cap: int = 0):
+    """Host half of one chunk: the padded, nibble-packed reversed codes
+    (Npad a power of two >= 256, Lpad a multiple of 32), the [len, md,
+    use_seed] aux rows (md = -1 marks padding) and the chunk's search
+    parameters (step_cap 0 = auto: max(1536, 6 * Lpad)).  Returns
+    (packed (Npad, Lpad/2) uint8, aux (Npad, 3) int32, SearchParams)."""
+    B = len(todo)
+    Lmax = max(p.len for p in todo)
+    Npad = 256
+    while Npad < B:
+        Npad *= 2
+    Lpad = max(32, -(-Lmax // 32) * 32)
+    seqs = np.full((Npad, Lpad), 4, dtype=np.int8)
+    lens = np.zeros(Npad, dtype=np.int32)
+    md = np.full(Npad, -1, dtype=np.int32)
+    use_seed = np.zeros(Npad, dtype=bool)
+    for b, p in enumerate(todo):
+        seqs[b, : p.len] = p.seq[: p.len]
+        lens[b] = p.len
+        md[b] = (bwa_cal_maxdiff(p.len, thres=opt.fnr)
+                 if opt.fnr > 0.0 else opt.max_diff)
+        use_seed[b] = p.len > opt.seed_len
+    batch_md = int(md[:B].max())
+    P = SearchParams(
+        L=Lpad, SL=opt.seed_len, NP=int(pool),
+        step_cap=int(step_cap or max(1536, 6 * Lpad)),
+        s_mm=opt.s_mm, s_gapo=opt.s_gapo, s_gape=opt.s_gape,
+        max_gapo=int(min(opt.max_gapo, batch_md)),
+        max_gape=opt.max_gape, indel_end_skip=opt.indel_end_skip,
+        max_del_occ=opt.max_del_occ, max_entries=opt.max_entries,
+        max_top2=opt.max_top2, max_seed_diff=opt.max_seed_diff)
+    packed = (seqs[:, 0::2].astype(np.uint8)
+              | (seqs[:, 1::2].astype(np.uint8) << 4))
+    aux = np.stack([lens, md, use_seed.astype(np.int32)], axis=1)
+    return packed, aux, P
+
+
+def chunk_inputs(fm: DeviceFM, packed: torch.Tensor, aux: torch.Tensor,
+                 P: SearchParams) -> dict:
+    """Device inputs of the search kernel for one chunk: unpacked codes,
+    per-read scalars and the width rows of both strands of every read and
+    of its seed (two width-kernel launches).
+
+    packed: (Npad, L/2) uint8 nibble pairs of reversed codes (lo = even
+    position); aux: (Npad, 3) int32 [len, md, use_seed]."""
+    pk8 = packed.long()
+    seqs0 = torch.stack([pk8 & 15, (pk8 >> 4) & 15], 2).reshape(
+        pk8.shape[0], -1)
+    N, L = seqs0.shape
+    assert L == P.L, (L, P.L)
+    lens, md = aux[:, 0].long(), aux[:, 1].long()
+    use_seed = aux[:, 2] != 0
+    dev = seqs0.device
+    seq1 = torch.where(seqs0 < 4, 3 - seqs0, seqs0)
+    units = torch.cat([seqs0, seq1])  # (2N, L): strand-0 rows first
+    sel2 = torch.cat([torch.zeros(N, dtype=torch.int32, device=dev),
+                      torch.ones(N, dtype=torch.int32, device=dev)])
+    lens2 = torch.cat([lens, lens])
+    SL = P.SL
+    # seed widths over the last SL bases (only meaningful where use_seed)
+    spos = ((lens - SL).clamp(0, L)[:, None]
+            + torch.arange(SL, device=dev)[None, :]).clamp(0, L - 1)
+    seed_units = torch.where(use_seed[:, None].repeat(2, 1),
+                             units.gather(1, spos.repeat(2, 1)), 4)
+    wv, bv = width(fm, units, sel2)
+    widths = width_finalize(wv, bv, lens2)
+    swv, sbv = width(fm, seed_units, sel2)
+    seed_w = width_finalize(swv, sbv, torch.full_like(lens2, SL))
+    n_n = ((seqs0 > 3) & (torch.arange(L, device=dev)[None, :]
+                          < lens[:, None])).sum(1)
+    return dict(seqs0=seqs0, lens=lens, md=md, use_seed=use_seed, n_n=n_n,
+                widths=widths, seed_w=seed_w)
+
+
+def search_chunk(fm: DeviceFM, packed: torch.Tensor, aux: torch.Tensor,
+                 P: SearchParams):
+    """The device half of one chunk: unpack, widths, search, compaction.
+    Returns (meta (3 Npad,) [n_aln | offs | fb], rows (3 Npad, 3), busy
+    steps) on the device."""
+    N = packed.shape[0]
+    n_aln, alns, fb, steps = resident_search(
+        fm, P, **chunk_inputs(fm, packed, aux, P))
+    n_c, rows, offs, fb_c = compact_hits(n_aln, alns, fb, 3 * N)
+    meta = torch.cat([n_c.to(torch.int32), offs.to(torch.int32), fb_c])
+    return meta, rows, steps.long().sum()
+
+
+class BatchEngine:
+    """Batched device engine with an exact native/host redo of the reads
+    the device search cannot finish."""
+
+    def __init__(self, idx: ReducedIndex, device: str | torch.device = "cpu",
+                 max_batch: int = 32768, pool: int | None = None,
+                 step_cap: int | None = None):
+        self.idx = idx
+        self.device = torch.device(device)
+        self.dev = DeviceFM.build(idx.fm_fwd, idx.fm_rev, self.device)
+        try:
+            from ..align.engine import NativeEngine
+
+            self.host = NativeEngine(idx)
+        except Exception:
+            self.host = HostEngine(idx)
+        self.max_batch = max_batch
+        self.pool = pool or DEF_POOL
+        self.step_cap = step_cap or 0  # 0 = auto: max(1536, 6 * Lpad)
+        self.last_fallback = 0
+        self.last_busy = 0
+        self.last_fb_causes: dict[str, int] = {}
+        # totals over the engine's life
+        self.reads_searched = 0
+        self.reads_fallback = 0
+        self.fb_causes: dict[str, int] = {}
+
+    def align_batch(self, reads, opt: GapOpt) -> None:
+        todo = [p for p in reads if not p.filtered]
+        for p in reads:
+            p.sa = 0
+            p.type = 0
+            p.c1 = p.c2 = 0
+            p.n_aln = 0
+            p.aln = []
+        self.last_fallback = 0
+        self.last_busy = 0
+        self.last_fb_causes = {}
+        for s in range(0, len(todo), self.max_batch):
+            self._run_chunk(todo[s:s + self.max_batch], opt)
+        self.reads_searched += len(todo)
+        self.reads_fallback += self.last_fallback
+        for k, v in self.last_fb_causes.items():
+            self.fb_causes[k] = self.fb_causes.get(k, 0) + v
+
+    def _count_causes(self, cause_words: np.ndarray) -> None:
+        for bit, name in FB_NAMES.items():
+            c = int(((cause_words & bit) != 0).sum())
+            if c:
+                self.last_fb_causes[name] = (
+                    self.last_fb_causes.get(name, 0) + c)
+
+    def _run_chunk(self, todo, opt: GapOpt) -> None:
+        if not todo:
+            return
+        # diff-word fields are 6 bits: the NBUCK guard keeps counts at or
+        # below (NBUCK-1)//penalty, which must fit in 63
+        for pen in (opt.s_mm, opt.s_gapo, opt.s_gape):
+            assert (NBUCK - 1) // max(pen, 1) <= 63, (
+                f"penalty {pen} admits >63 events within {NBUCK} score "
+                "buckets; diff-word packing would overflow")
+        long_reads = [p for p in todo if p.len > MAX_READ_LEN]
+        if long_reads:
+            self.host.align_batch(long_reads, opt)
+            self.last_fallback += len(long_reads)
+            self.last_fb_causes[FB_NAMES[FB_LONG]] = (
+                self.last_fb_causes.get(FB_NAMES[FB_LONG], 0)
+                + len(long_reads))
+            todo = [p for p in todo if p.len <= MAX_READ_LEN]
+        if not todo:
+            return
+        B = len(todo)
+        packed, aux, P = pack_chunk(todo, opt, self.pool, self.step_cap)
+        Npad = packed.shape[0]
+        meta_d, rows_d, busy = search_chunk(
+            self.dev, torch.from_numpy(packed).to(self.device),
+            torch.from_numpy(aux).to(self.device), P)
+        meta = meta_d.cpu().numpy()  # [n_aln | offs | fallback]
+        n_aln = meta[:Npad]
+        offs = meta[Npad:2 * Npad]
+        fallback = meta[2 * Npad:]
+        self.last_fallback += int((fallback[:B] != 0).sum())
+        self._count_causes(fallback[:B])
+        self.last_busy += int(busy)
+        fb_list = fallback.tolist()
+        fb_reads = [p for b, p in enumerate(todo) if fb_list[b]]
+        # the exact redo overlaps the hit-row copy and decode (the native
+        # engine releases the GIL)
+        fb_thread = None
+        if fb_reads:
+            fb_thread = threading.Thread(
+                target=self.host.align_batch, args=(fb_reads, opt))
+            fb_thread.start()
+        rows = rows_d.cpu().numpy()
+        f0 = rows[:, 0]
+        mm_l = (f0 & 63).tolist()
+        go_l = ((f0 >> 6) & 63).tolist()
+        ge_l = ((f0 >> 12) & 63).tolist()
+        a_l = ((f0 >> 18) & 1).tolist()
+        sc_l = ((f0 >> 19) & 127).tolist()
+        k_l = rows[:, 1].tolist()
+        l_l = rows[:, 2].tolist()
+        n_list = n_aln.tolist()
+        o_list = offs.tolist()
+        for b, p in enumerate(todo):
+            if fb_list[b]:
+                continue
+            s = o_list[b]
+            p.aln = [Aln(mm_l[i], go_l[i], ge_l[i], a_l[i],
+                         k_l[i], l_l[i], sc_l[i])
+                     for i in range(s, s + n_list[b])]
+            p.n_aln = len(p.aln)
+        if fb_thread is not None:
+            fb_thread.join()

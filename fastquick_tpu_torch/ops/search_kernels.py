@@ -1,0 +1,530 @@
+"""Width and search kernels (CUDA, csrc/width.cu + csrc/search.cu) with
+their plain PyTorch versions.
+
+``width`` replaces the Pallas _width_kernel (fastquick_tpu/ops/
+search_pallas.py:1603) and ``resident_search`` the Pallas _resident_kernel
+(:773).  Each wrapper launches its CUDA kernel for CUDA tensors (and
+raises if that fails) and runs the plain version for CPU tensors:
+
+- width: ops/fm.cal_width_planes;
+- search: ``search_plain`` below, a lockstep formulation over lanes of
+  reads with per-lane point gather/scatter pool updates and lane refill.
+  Its per-step semantics are those of the reference package's XLA
+  ``_search_kernel`` step (fastquick_tpu/ops/batch_search.py:342-775),
+  which tests/test_search_pallas.py pins equal to the Pallas kernels.
+
+Per-read semantics do not depend on the lane a read runs in or on the
+reads beside it (chunk-level parameters aside: max_gapo and the step cap
+come from the whole chunk), which is what lets the CUDA kernel run one
+thread per read.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import astuple, dataclass
+
+import numpy as np
+import torch
+
+from ..kernels import build
+from .fm import DeviceFM, cal_width_planes, occ4_pair
+
+A_MAX = 48  # max recorded hits per read
+_INNER = 32  # plain version: lockstep steps between lane flush/refills
+NBUCK = 128  # score buckets
+STATE_M, STATE_I, STATE_D = 0, 1, 2
+
+# fallback-cause bits (0 = no fallback; any nonzero routes the read to the
+# exact native/host engine)
+FB_POOL = 1       # pool capacity exceeded (free slots < children)
+FB_SCORE = 2      # child score outside the NBUCK bucket range
+FB_AMAX = 4       # more than A_MAX recorded hits
+FB_STEPCAP = 8    # per-read step cap hit
+# (16 is the reference resident kernel's round cap; one thread per read
+# has no rounds, so the bit is never set here)
+FB_LONG = 32      # read longer than MAX_READ_LEN (host-side gate)
+FB_D2H = 64       # compacted hit buffer overflowed (K_CAP rows)
+FB_NAMES = {FB_POOL: "pool", FB_SCORE: "score", FB_AMAX: "amax",
+            FB_STEPCAP: "stepcap", FB_LONG: "long", FB_D2H: "d2h"}
+
+
+@dataclass(frozen=True)
+class SearchParams:
+    """Chunk-level search parameters (order = csrc/search_body.cuh)."""
+
+    L: int  # padded read length
+    SL: int  # seed length
+    NP: int  # pool slots per read
+    step_cap: int
+    s_mm: int
+    s_gapo: int
+    s_gape: int
+    max_gapo: int
+    max_gape: int
+    indel_end_skip: int
+    max_del_occ: int
+    max_entries: int
+    max_top2: int
+    max_seed_diff: int
+
+    def to_array(self) -> np.ndarray:
+        return np.array(astuple(self), dtype=np.int32)
+
+
+# ---------------------------------------------------------------- width
+
+
+def width(fm: DeviceFM, units: torch.Tensor, sel: torch.Tensor
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """bwt_cal_width raw (w, bid) planes for (M, L) units (codes 0..4) with
+    per-unit strand selector sel (M,).  Returns two (M, L) int32 tensors;
+    ops/fm.width_finalize adds the terminal entry."""
+    if units.device.type == "cpu":
+        return cal_width_planes(fm, sel, units)
+    build.require_cuda(units, sel, fm.words)
+    M, L = units.shape
+    units8 = units.to(torch.uint8).contiguous()
+    sel32 = sel.to(torch.int32).contiguous()
+    w = torch.empty((M, L), dtype=torch.int32, device=units.device)
+    bid = torch.empty((M, L), dtype=torch.int32, device=units.device)
+    lib = build.cuda_library()
+    hp = fm.host_params()
+    stream = torch.cuda.current_stream(units.device).cuda_stream
+    p = build.ptr
+    rc = lib.fq_width_launch(p(fm.kernel_table()),
+                             hp.ctypes.data_as(ctypes.c_void_p), p(units8),
+                             p(sel32), M, L, p(w), p(bid),
+                             ctypes.c_void_p(stream))
+    build.check(rc, "width")
+    build.launch_counts["width"] += 1
+    return w, bid
+
+
+# --------------------------------------------------------------- search
+
+
+def resident_search(fm: DeviceFM, P: SearchParams, seqs0: torch.Tensor,
+                    lens: torch.Tensor, md: torch.Tensor,
+                    use_seed: torch.Tensor, n_n: torch.Tensor,
+                    widths: torch.Tensor, seed_w: torch.Tensor):
+    """Inexact search of a chunk of N reads.
+
+    seqs0: (N, L) reversed read codes (strand 0; strand 1 is their
+    complement); lens/md/use_seed/n_n: (N,) (md < 0 marks padding rows);
+    widths: (2N, L+1, 2) finalized width rows (strand-0 rows first) --
+    scratch: the CUDA kernel applies gap_shadow to it in place; seed_w:
+    (2N, SL+1, 2).
+
+    Returns (n_aln, alns (N, A_MAX, 3) [mm|go<<6|ge<<12|a<<18|score<<19,
+    k, l], fb, steps), all int32, raw per read (n_aln is not zeroed for
+    fallback reads)."""
+    if seqs0.device.type == "cpu":
+        return search_plain(fm, P, seqs0, lens, md, use_seed, n_n, widths,
+                            seed_w)
+    build.require_cuda(seqs0, lens, md, use_seed, n_n, widths, seed_w,
+                       fm.words)
+    if not 0 < P.NP < 32768:
+        raise ValueError(f"pool of {P.NP} slots: the next link is 15 bits")
+    N = seqs0.shape[0]
+    dev = seqs0.device
+    i32 = torch.int32
+    if (widths.shape != (2 * N, P.L + 1, 2) or widths.dtype != i32
+            or not widths.is_contiguous()):
+        raise ValueError(f"widths must be contiguous int32 (2N, L+1, 2), "
+                         f"got {widths.dtype} {tuple(widths.shape)}")
+    if seed_w.shape != (2 * N, P.SL + 1, 2):
+        raise ValueError(f"seed_w must be (2N, SL+1, 2), got "
+                         f"{tuple(seed_w.shape)}")
+    seqs8 = seqs0.to(torch.uint8).contiguous()
+    lens32, md32 = lens.to(i32).contiguous(), md.to(i32).contiguous()
+    us32, nn32 = use_seed.to(i32).contiguous(), n_n.to(i32).contiguous()
+    seed32 = seed_w.to(i32).contiguous()
+    pool = torch.empty((N, P.NP, 4), dtype=i32, device=dev)
+    freel = torch.empty((N, P.NP), dtype=torch.int16, device=dev)
+    heads = torch.empty((N, NBUCK), dtype=torch.int16, device=dev)
+    alns = torch.zeros((N, A_MAX, 3), dtype=i32, device=dev)
+    n_aln = torch.empty(N, dtype=i32, device=dev)
+    fb = torch.empty(N, dtype=i32, device=dev)
+    steps = torch.empty(N, dtype=i32, device=dev)
+    lib = build.cuda_library()
+    hp = fm.host_params()
+    sp = P.to_array()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    p = build.ptr
+    rc = lib.fq_search_launch(
+        p(fm.kernel_table()), hp.ctypes.data_as(ctypes.c_void_p),
+        sp.ctypes.data_as(ctypes.c_void_p), p(seqs8), p(lens32), p(md32),
+        p(us32), p(nn32), N, p(widths), p(seed32), p(pool), p(freel),
+        p(heads), p(alns), p(n_aln), p(fb), p(steps), ctypes.c_void_p(stream))
+    build.check(rc, "search")
+    build.launch_counts["search"] += 1
+    return n_aln, alns, fb, steps
+
+
+def _g(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-row point gather t[b, idx[b]]."""
+    return t.gather(1, idx[:, None])[:, 0]
+
+
+class _Lanes:
+    """Lane state of the plain search: one row per lane.  Pool, head, free
+    and hit planes carry one dummy column (index NP / NBUCK / A_MAX) that
+    absorbs masked-off scatters."""
+
+    PER_LANE = ("rid", "done", "ch_on", "use_s", "lns", "md0", "max_diff",
+                "n_entries", "free_top", "best_score", "best_cnt", "n_aln",
+                "overflow", "steps", "ch", "pk", "pl", "pai", "pdiff",
+                "heads", "freel", "al", "wid", "sw", "seq")
+
+    def __init__(self, B, NP, L, SL, dev):
+        lng = torch.long
+
+        def z(*shape, dtype=lng):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.rid = torch.full((B,), -1, dtype=lng, device=dev)
+        self.done = torch.ones(B, dtype=torch.bool, device=dev)
+        self.ch_on = z(B, dtype=torch.bool)
+        self.use_s = z(B, dtype=torch.bool)
+        for name in ("lns", "md0", "max_diff", "n_entries", "free_top",
+                     "best_score", "best_cnt", "n_aln", "overflow", "steps"):
+            setattr(self, name, z(B))
+        self.ch = z(B, 8)
+        self.pk, self.pl, self.pai, self.pdiff = (z(B, NP + 1)
+                                                  for _ in range(4))
+        self.heads = torch.full((B, NBUCK + 1), -1, dtype=lng, device=dev)
+        self.freel = z(B, NP + 1)
+        self.al = z(B, A_MAX + 1, 3)
+        self.wid = z(B, 2, L + 1, 2)
+        self.sw = z(B, 2, SL + 1, 2)
+        self.seq = z(B, 2, L)
+
+    @property
+    def B(self) -> int:
+        return self.rid.shape[0]
+
+    def keep(self, idx: torch.Tensor) -> None:
+        for name in self.PER_LANE:
+            setattr(self, name, getattr(self, name)[idx])
+
+
+def search_plain(fm: DeviceFM, P: SearchParams, seqs0, lens, md, use_seed,
+                 n_n, widths, seed_w, lanes: int = 8192):
+    """Plain version of the search kernel: all lanes advance one step in
+    lockstep; every _INNER steps finished lanes are flushed and refilled
+    with the next reads, and once no reads are left the lane set shrinks to
+    the lanes still searching.  Same arguments and results as
+    resident_search (``widths`` is left unchanged)."""
+    dev = seqs0.device
+    N, L = seqs0.shape
+    NP, SL, n = P.NP, P.SL, fm.n
+    LW, SLW = L + 1, SL + 1
+    lng = torch.long
+
+    seq_s0 = seqs0.long()
+    seq_all = torch.stack([seq_s0, torch.where(seq_s0 < 4, 3 - seq_s0,
+                                               seq_s0)], 1)  # (N, 2, L)
+    wid_all = torch.stack([widths[:N], widths[N:]], 1).long()
+    sw_all = torch.stack([seed_w[:N], seed_w[N:]], 1).long()
+    lens_all, md_all = lens.long(), md.long()
+    us_all, nn_all = use_seed.bool(), n_n.long()
+    L2 = fm.L2.long()
+
+    out_n = torch.zeros(N, dtype=lng, device=dev)
+    out_al = torch.zeros((N, A_MAX, 3), dtype=lng, device=dev)
+    out_fb = torch.zeros(N, dtype=lng, device=dev)
+    out_steps = torch.zeros(N, dtype=lng, device=dev)
+
+    s = _Lanes(max(1, min(lanes, N)), NP, L, SL, dev)
+    iota_np = torch.arange(NP - 1, -1, -1, dtype=lng, device=dev)
+    pos_lw = torch.arange(LW, device=dev)[None, :]
+    ar_amax = torch.arange(A_MAX, device=dev)[None, :]
+
+    def fresh(li: torch.Tensor, r: torch.Tensor) -> None:
+        valid = md_all[r] >= 0
+        ln = torch.where(valid, lens_all[r], 0)
+        m0 = torch.where(valid, md_all[r], 0)
+        dead = ~valid | (nn_all[r] > m0) | (ln <= 0)
+        s.rid[li] = r
+        s.lns[li] = ln
+        s.md0[li] = m0
+        s.max_diff[li] = m0
+        s.use_s[li] = valid & us_all[r]
+        s.pk[li] = 0
+        s.pl[li] = 0
+        s.pl[li, 0] = n
+        s.pl[li, 1] = n
+        s.pai[li] = 0
+        s.pai[li, 0] = ln | (NP << 16)
+        s.pai[li, 1] = ln | (1 << 13)
+        s.pdiff[li] = 0
+        s.heads[li] = -1
+        s.heads[li, 0] = torch.where(dead, -1, 1)
+        s.freel[li, :NP] = iota_np
+        s.free_top[li] = NP - 2
+        s.n_entries[li] = torch.where(dead, 0, 2)
+        s.best_score[li] = ((m0 + 1) * P.s_mm + (P.max_gapo + 1) * P.s_gapo
+                            + (P.max_gape + 1) * P.s_gape)
+        s.best_cnt[li] = 0
+        s.n_aln[li] = 0
+        s.al[li] = 0
+        s.wid[li] = wid_all[r]
+        s.sw[li] = sw_all[r]
+        s.seq[li] = seq_all[r]
+        s.ch_on[li] = False
+        s.ch[li] = 0
+        s.done[li] = dead
+        s.overflow[li] = 0
+        s.steps[li] = 0
+
+    def step() -> None:
+        B = s.B
+        avail = ~s.done
+        work_chain = avail & s.ch_on
+        can_pop = avail & ~s.ch_on & (s.n_entries > 0)
+        done = s.done | (avail & ~s.ch_on & (s.n_entries == 0))
+        hitcap = can_pop & (s.n_entries > P.max_entries)
+        done = done | hitcap
+        can_pop = can_pop & ~hitcap
+
+        # ---- pop: head of the lowest non-empty bucket ----
+        bucket = (s.heads[:, :NBUCK] >= 0).to(torch.int8).argmax(1)
+        slot = _g(s.heads, bucket).clamp(0, NP - 1)
+        k, l = _g(s.pk, slot), _g(s.pl, slot)
+        ai_w, d = _g(s.pai, slot), _g(s.pdiff, slot)
+        nxt_f = (ai_w >> 16) & 0x7FFF
+        nxt = torch.where(nxt_f == NP, -1, nxt_f)
+        s.heads.scatter_(1, torch.where(can_pop, bucket, NBUCK)[:, None],
+                         nxt[:, None])
+        s.freel.scatter_(1, torch.where(can_pop, s.free_top.clamp(0, NP - 1),
+                                        NP)[:, None], slot[:, None])
+        free_top = s.free_top + can_pop.long()
+        n_entries = s.n_entries - can_pop.long()
+        a = (ai_w >> 13) & 1
+        i = ai_w & 0x1FFF
+        state = (ai_w >> 14) & 3
+        n_mm, n_gapo, n_gape = d & 63, (d >> 6) & 63, (d >> 12) & 63
+        ldp = d >> 18
+        stop = can_pop & (bucket > s.best_score + P.s_mm)
+        done = done | stop
+        alive = can_pop & ~stop
+        m = s.max_diff - (n_mm + n_gapo) - n_gape
+        alive = alive & (m >= 0)
+        i2 = i - 1
+        widf = s.wid.view(B, -1)
+
+        def wget(p, f):
+            return _g(widf, a * (LW * 2) + p.clamp(0, L) * 2 + f)
+
+        ww_i2, wb_i2 = wget(i2, 0), wget(i2, 1)
+        ww_i2m1, wb_i2m1 = wget(i2 - 1, 0), wget(i2 - 1, 1)
+        alive = alive & ~((i > 0) & (m < wb_i2))
+        hit_i0 = alive & (i == 0)
+        start_chain = alive & (i > 0) & (m == 0)
+        expand = alive & ~hit_i0 & ~start_chain
+
+        # ---- shared rank queries ----
+        ch = s.ch
+        ck_k = torch.where(work_chain, ch[:, 0], k)
+        ck_l = torch.where(work_chain, ch[:, 1], l)
+        cur_a = torch.where(work_chain, ch[:, 3], a)
+        sel = 1 - cur_a
+        cnt_k, cnt_l = occ4_pair(fm, sel, ck_k - 1, ck_l)  # (B, 4) each
+        L2row = L2[sel]
+
+        # ---- chain step (bwt_match_exact_alt) ----
+        chainish = work_chain | start_chain
+        ch_i = torch.where(work_chain, ch[:, 2], i)
+        seqf = s.seq.view(B, -1)
+        cc = _g(seqf, cur_a * L + (ch_i - 1).clamp(0, L - 1))
+        si = _g(seqf, a * L + i2.clamp(0, L - 1))
+        ccl = cc.clamp(0, 3)
+        L2c = _g(L2row, ccl)
+        nk = L2c + _g(cnt_k, ccl) + 1
+        nl = L2c + _g(cnt_l, ccl)
+        ch_dead = chainish & ((cc > 3) | (nk > nl))
+        ch_hit = chainish & ~ch_dead & (ch_i - 1 == 0)
+        ch_cont = chainish & ~ch_dead & ~ch_hit
+        new_ch = torch.stack(
+            [nk, nl, ch_i - 1, cur_a,
+             torch.where(start_chain, n_mm, ch[:, 4]),
+             torch.where(start_chain, n_gapo, ch[:, 5]),
+             torch.where(start_chain, n_gape, ch[:, 6]),
+             torch.where(start_chain, ldp, ch[:, 7])], 1)
+        ch = torch.where(chainish[:, None], new_ch, ch)
+        s.ch = ch
+        s.ch_on = ch_cont
+
+        # ---- hits ----
+        hit = hit_i0 | ch_hit
+        hk = torch.where(ch_hit, ch[:, 0], k)
+        hl = torch.where(ch_hit, ch[:, 1], l)
+        hmm = torch.where(ch_hit, ch[:, 4], n_mm)
+        hgo = torch.where(ch_hit, ch[:, 5], n_gapo)
+        hge = torch.where(ch_hit, ch[:, 6], n_gape)
+        ha = torch.where(ch_hit, ch[:, 3], a)
+        hldp = torch.where(ch_hit, ch[:, 7], ldp)
+        score = hmm * P.s_mm + hgo * P.s_gapo + hge * P.s_gape
+        first_hit = hit & (s.n_aln == 0)
+        s.best_score = torch.where(first_hit, score, s.best_score)
+        s.max_diff = torch.where(first_hit,
+                                 torch.minimum(hmm + hgo + hge + 1, s.md0),
+                                 s.max_diff)
+        eq_best = hit & (score == s.best_score)
+        top2b = hit & ~eq_best & (s.best_cnt > P.max_top2)
+        s.best_cnt = s.best_cnt + torch.where(eq_best, hl - hk + 1, 0)
+        done = done | top2b
+        hit = hit & ~top2b
+        dup = ((s.al[:, :A_MAX, 1] == hk[:, None])
+               & (s.al[:, :A_MAX, 2] == hl[:, None])
+               & (ar_amax < s.n_aln[:, None])).any(1)
+        do_add = hit & ~((hgo > 0) & dup)
+        sh = do_add.nonzero().squeeze(1)
+        if sh.numel():
+            # gap_shadow on the hit strand's width row (bwtgap.c:81-91)
+            hs = ha[sh]
+            planes = s.wid[sh, hs]  # (H, LW, 2)
+            ww, wb = planes[..., 0], planes[..., 1]
+            x = (hl - hk + 1)[sh][:, None]
+            in_rng = pos_lw < hldp[sh][:, None]
+            eqx = (ww == x) & in_rng
+            jcum = eqx.long().cumsum(1)
+            ww_new = torch.where(in_rng & (ww > x), ww - x,
+                                 torch.where(eqx, n - jcum, ww))
+            wb_new = torch.where(eqx, 1, wb)
+            s.wid[sh, hs] = torch.stack([ww_new, wb_new], -1)
+        add_m = do_add & (s.n_aln < A_MAX)
+        overflow = s.overflow | torch.where(do_add & (s.n_aln >= A_MAX),
+                                            FB_AMAX, 0)
+        arow = torch.stack([hmm | (hgo << 6) | (hge << 12) | (ha << 18)
+                            | (score << 19), hk, hl], 1)
+        s.al[torch.arange(B, device=dev),
+             torch.where(add_m, s.n_aln, A_MAX)] = arow
+        s.n_aln = s.n_aln + add_m.long()
+
+        # ---- expansion (bwtgap.c:150-214) ----
+        occ_w = l - k + 1
+        allow_diff = ~((i2 > 0) & (wb_i2m1 > m - 1))
+        allow_m = ~((i2 > 0) & (wb_i2m1 == m - 1) & (wb_i2 == m - 1)
+                    & (ww_i2m1 == ww_i2))
+        msd = P.max_seed_diff - (n_mm + n_gapo) - n_gape
+        ii = i2 - (s.lns - SL)
+        swf = s.sw.view(B, -1)
+
+        def sget(p, f):
+            return _g(swf, a * (SLW * 2) + p.clamp(0, SL) * 2 + f)
+
+        s1w, s1b = sget(ii - 1, 0), sget(ii - 1, 1)
+        s2w, s2b = sget(ii, 0), sget(ii, 1)
+        seed_on = s.use_s & (i2 > 0) & (ii > 0)
+        allow_diff = allow_diff & ~(seed_on & (s1b > msd - 1))
+        allow_m = allow_m & ~(seed_on & (s1b == msd - 1) & (s2b == msd - 1)
+                              & (s1w == s2w))
+        tmp = n_gapo + n_gape
+        indel_ok = (expand & allow_diff & (i2 >= P.indel_end_skip + tmp)
+                    & (s.lns - i2 >= P.indel_end_skip + tmp))
+        ins_open = indel_ok & (state == STATE_M) & (n_gapo < P.max_gapo)
+        ins_ext = indel_ok & (state == STATE_I) & (n_gape < P.max_gape)
+        del_open = ins_open
+        del_ext = (indel_ok & (state == STATE_D) & (n_gape < P.max_gape)
+                   & ((n_gapo + n_gape < s.max_diff)
+                      | (occ_w < P.max_del_occ)))
+        allow_mm = expand & allow_diff & allow_m
+
+        kk4 = L2row + cnt_k + 1
+        ll4 = L2row + cnt_l
+        cv, cs, ckk, cll, cai, cdf = [], [], [], [], [], []
+
+        def child(mask, pi, kj, lj, pmm, pgo, pge, pst, pldp):
+            cv.append(mask)
+            cs.append(pmm * P.s_mm + pgo * P.s_gapo + pge * P.s_gape)
+            ckk.append(kj)
+            cll.append(lj)
+            cai.append((pst << 14) | (a << 13) | pi)
+            cdf.append(pmm | (pgo << 6) | (pge << 12) | (pldp << 18))
+
+        child(ins_open | ins_ext, i2, k, l, n_mm, n_gapo + ins_open.long(),
+              n_gape + ins_ext.long(), STATE_I, i2)
+        for j in range(4):
+            child((del_open | del_ext) & (kk4[:, j] <= ll4[:, j]), i2 + 1,
+                  kk4[:, j], ll4[:, j], n_mm, n_gapo + del_open.long(),
+                  n_gape + del_ext.long(), STATE_D, i2 + 1)
+        for j in range(1, 5):
+            if j == 4:
+                mask_j = allow_mm | (expand & ~(allow_diff & allow_m)
+                                     & (si < 4))
+                is_mm = allow_mm & (si > 3)
+            else:
+                mask_j = allow_mm
+                is_mm = torch.ones_like(allow_mm)
+            cj = (si + j) & 3
+            kj, lj = _g(kk4, cj), _g(ll4, cj)
+            child(mask_j & (kj <= lj), i2, kj, lj,
+                  n_mm + (mask_j & is_mm).long(), n_gapo, n_gape, STATE_M,
+                  torch.where(is_mm, i2, ldp))
+        valid = torch.stack(cv, 1)
+        scores = torch.stack(cs, 1)
+        total = valid.long().sum(1)
+        bad_score = (valid & (scores >= NBUCK)).any(1)
+        no_room = total > free_top
+        ovf = (bad_score | no_room) & expand
+        overflow = (overflow | torch.where(bad_score & expand, FB_SCORE, 0)
+                    | torch.where(no_room & expand, FB_POOL, 0))
+        done = done | ovf
+        valid = valid & ~ovf[:, None]
+        total = torch.where(ovf, 0, total)
+        rank = valid.long().cumsum(1)
+        slots = s.freel.gather(1, (free_top[:, None] - rank).clamp(0, NP - 1))
+        s.free_top = free_top - total
+        s.n_entries = n_entries + total
+        # LIFO pushes in C order: each child links to its bucket's head
+        for c in range(len(cv)):
+            v = valid[:, c]
+            sc = scores[:, c].clamp(0, NBUCK - 1)
+            prev = _g(s.heads, sc)
+            aiw = cai[c] | (torch.where(prev < 0, NP, prev) << 16)
+            col = torch.where(v, slots[:, c], NP)[:, None]
+            s.pk.scatter_(1, col, ckk[c][:, None])
+            s.pl.scatter_(1, col, cll[c][:, None])
+            s.pai.scatter_(1, col, aiw[:, None])
+            s.pdiff.scatter_(1, col, cdf[c][:, None])
+            s.heads.scatter_(1, torch.where(v, sc, NBUCK)[:, None],
+                             slots[:, c:c + 1])
+
+        # ---- per-read step cap -> exact fallback ----
+        steps = s.steps + (~done).long()
+        capped = ~done & (steps > P.step_cap)
+        s.overflow = overflow | torch.where(capped, FB_STEPCAP, 0)
+        s.done = done | capped
+        s.steps = steps
+
+    next_read = 0
+    while True:
+        flush = s.done & (s.rid >= 0)
+        if bool(flush.any()):
+            fl = flush.nonzero().squeeze(1)
+            r = s.rid[fl]
+            out_n[r] = s.n_aln[fl]
+            out_al[r] = s.al[fl, :A_MAX]
+            out_fb[r] = s.overflow[fl]
+            out_steps[r] = s.steps[fl]
+            s.rid[fl] = -1
+        if next_read < N:
+            free_lanes = s.done.nonzero().squeeze(1)[: N - next_read]
+            if free_lanes.numel():
+                r = torch.arange(next_read, next_read + free_lanes.numel(),
+                                 device=dev)
+                fresh(free_lanes, r)
+                next_read += free_lanes.numel()
+        else:
+            live = (~s.done).nonzero().squeeze(1)
+            if live.numel() == 0:
+                break
+            if 2 * live.numel() <= s.B:
+                s.keep(live)  # only stragglers left: shrink the lane set
+        for _ in range(_INNER):
+            step()
+    i32 = torch.int32
+    return (out_n.to(i32), out_al.to(i32), out_fb.to(i32),
+            out_steps.to(i32))

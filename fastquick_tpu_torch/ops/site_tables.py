@@ -1,0 +1,79 @@
+"""Pac-coordinate site tables for the device dense statistics.
+
+Counterpart of ``SiteTables`` / ``build_site_tables`` in
+fastquick_tpu/ops/qc_full.py:75-135 (that module imports JAX, so only
+this numpy part is carried over), returning torch tensors.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+
+@dataclass(frozen=True)
+class SiteTables:
+    """Pac-coordinate site tables on one device.
+
+    Index n_text is the out-of-range guard row (site -1, marker -1)."""
+
+    site_idx: torch.Tensor   # (n+1,) int32: dense-site index or -1
+    marker_id: torch.Tensor  # (n+1,) int32: marker index or -1
+    text: torch.Tensor       # (n+1,) int32 codes (guard row 4)
+    dbsnp: torch.Tensor      # (S,) bool over the dense site space
+    is_xy: torch.Tensor      # (n+1,) bool: position on an X/Y contig
+    contig_id: torch.Tensor  # (n+1,) int32: contig index (guard row -1)
+    contig_off: torch.Tensor  # (C,) int32: contig pac offsets
+    contig_len: torch.Tensor  # (C,) int32: contig lengths
+    n_sites: int
+    n_markers: int
+
+
+def build_site_tables(idx, sc, opt,
+                      device: str | torch.device = "cpu") -> SiteTables:
+    """Build pac-space tables from a ReducedIndex + a StatCollector that
+    has run restore_vcf_sites (mirrors the coordinate math of
+    add_single_alignment: real = contig.pos - flank + (pac - offset))."""
+    n = idx.l_pac
+    site_idx = np.full(n + 1, -1, np.int32)
+    marker_id = np.full(n + 1, -1, np.int32)
+    is_xy = np.zeros(n + 1, bool)
+    contig_id = np.full(n + 1, -1, np.int32)
+    sites = sc.sites
+    for ci, contig in enumerate(idx.contigs):
+        contig_id[contig.offset:contig.offset + contig.length] = ci
+        flank = opt.flank_long_len if contig.is_long else opt.flank_len
+        start_real = contig.pos - flank  # 1-based real coord of pac offset
+        chrom = contig.chrom[3:] if contig.chrom.startswith("chr") \
+            else contig.chrom
+        pos1, didx = sites.index_range(
+            chrom, start_real, start_real + contig.length)
+        pac = contig.offset + (pos1 - start_real)
+        ok = (pac >= 0) & (pac < n)
+        site_idx[pac[ok]] = didx[ok]
+        # marker position -> pac coordinate
+        mpac = contig.offset + (contig.pos - start_real)
+        if 0 <= mpac < n:
+            tbl = sc.vcf_table.get(chrom)
+            if tbl is not None and contig.pos in tbl:
+                marker_id[mpac] = tbl[contig.pos]
+        if chrom in ("X", "Y"):
+            is_xy[contig.offset:contig.offset + contig.length] = True
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    return SiteTables(
+        site_idx=put(site_idx),
+        marker_id=put(marker_id),
+        text=put(np.concatenate([idx.text.astype(np.int32), [4]])
+                 .astype(np.int32)),
+        dbsnp=put(np.asarray(sites.dbsnp, dtype=bool)),
+        is_xy=put(is_xy),
+        contig_id=put(contig_id),
+        contig_off=put(np.array([c.offset for c in idx.contigs], np.int32)),
+        contig_len=put(np.array([c.length for c in idx.contigs], np.int32)),
+        n_sites=int(sites.total),
+        n_markers=len(sc.vcf_rec_vec))

@@ -1,0 +1,172 @@
+"""The port's BatchEngine (plain PyTorch search on the CPU) against
+fastquick_tpu's XLA search and HostEngine; hit compaction against
+_compact_hits; lane independence of the plain search; and the search
+kernel's per-read body, built for the host with g++, against the plain
+version.  Every comparison is exact."""
+
+import ctypes
+import dataclasses
+import shutil
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+torch.set_num_threads(1)  # one intra-op thread per test worker
+
+from fastquick_tpu.align.engine import HostEngine  # noqa: E402
+from fastquick_tpu.align.opts import GapOpt  # noqa: E402
+from fastquick_tpu.ops import batch_search as jbs  # noqa: E402
+from fastquick_tpu_torch.align.seqs import Read as TRead  # noqa: E402
+from fastquick_tpu_torch.index.builder import (  # noqa: E402
+    ContigInfo as TContig,
+    ReducedIndex as TIndex,
+)
+from fastquick_tpu_torch.index.kmerfilter import KmerFilter as TKmer  # noqa: E402
+from fastquick_tpu_torch.ops import batch_search as tbs  # noqa: E402
+from fastquick_tpu_torch.ops.search_kernels import search_plain  # noqa: E402
+
+from test_batch_engine import aln_key, make_idx, make_read, synth_reads  # noqa: E402
+
+
+def port_idx(idx):
+    """The same index as the port's ReducedIndex (FM arrays shared)."""
+    c = idx.contigs[0]
+    contig = TContig(*[getattr(c, f) for f in c.__dataclass_fields__])
+    return TIndex(fm_fwd=idx.fm_fwd, fm_rev=idx.fm_rev, text=idx.text,
+                  contigs=[contig], contig_offsets=idx.contig_offsets,
+                  kmer=TKmer([np.zeros(0, np.uint32)] * 6, thresh=0),
+                  ambs=[])
+
+
+def port_reads(reads):
+    out = []
+    for p in reads:
+        q = TRead()
+        for f in ("len", "full_len", "clip_len", "seq", "rseq", "qual"):
+            v = getattr(p, f)
+            setattr(q, f, v.copy() if isinstance(v, np.ndarray) else v)
+        out.append(q)
+    return out
+
+
+@pytest.mark.parametrize("pool,step_cap", [(512, 768), (1024, 1536)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_matches_xla_and_host(seed, pool, step_cap):
+    idx = make_idx(seed=seed)
+    reads_h = synth_reads(idx, 60, seed + 10)
+    reads_x = synth_reads(idx, 60, seed + 10)
+    reads_t = port_reads(synth_reads(idx, 60, seed + 10))
+    HostEngine(idx).align_batch(reads_h, GapOpt())
+    ex = jbs.BatchEngine(idx, max_batch=64, pool=pool, step_cap=step_cap,
+                         pallas=False)
+    ex.align_batch(reads_x, GapOpt())
+    et = tbs.BatchEngine(port_idx(idx), "cpu", pool=pool, step_cap=step_cap)
+    et.align_batch(reads_t, GapOpt())
+    assert et.last_fallback == ex.last_fallback
+    assert et.last_fb_causes == ex.last_fb_causes
+    for i, (h, x, t) in enumerate(zip(reads_h, reads_x, reads_t)):
+        hk = [aln_key(a) for a in h.aln]
+        xk = [aln_key(a) for a in x.aln]
+        tk = [aln_key(a) for a in t.aln]
+        assert tk == xk, f"read {i}: port {tk} vs xla {xk}"
+        assert tk == hk, f"read {i}: port {tk} vs host {hk}"
+
+
+def test_n_bases_and_lengths():
+    idx = make_idx(seed=5)
+    codes = [idx.text[500:600].copy()]
+    codes[0][50] = 4
+    for ln in (36, 70, 151):
+        start = 1000 + ln * 7
+        codes.append(idx.text[start:start + ln].copy())
+    rh = [make_read(c.copy()) for c in codes]
+    rt = port_reads([make_read(c.copy()) for c in codes])
+    HostEngine(idx).align_batch(rh, GapOpt())
+    tbs.BatchEngine(port_idx(idx), "cpu").align_batch(rt, GapOpt())
+    for h, t in zip(rh, rt):
+        assert [aln_key(a) for a in h.aln] == [aln_key(a) for a in t.aln]
+
+
+def test_compact_hits_matches_jax():
+    rng = np.random.default_rng(7)
+    N = 64
+    n_aln = rng.integers(0, 6, N).astype(np.int32)
+    n_aln[3] = 48
+    alns = rng.integers(0, 1 << 20, (N, 48, 3)).astype(np.int32)
+    fb = np.where(rng.random(N) < 0.2, 8, 0).astype(np.int32)
+    for K_CAP in (3 * N, 40):  # roomy, and small enough to spill
+        want = jbs._compact_hits(jnp.asarray(n_aln), jnp.asarray(alns),
+                                 jnp.asarray(fb), K_CAP)
+        got = tbs.compact_hits(torch.from_numpy(n_aln),
+                               torch.from_numpy(alns), torch.from_numpy(fb),
+                               K_CAP)
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _chunk(idx, reads, pool=1024):
+    """Search-kernel inputs of one chunk, as BatchEngine builds them."""
+    eng = tbs.BatchEngine(port_idx(idx), "cpu", pool=pool)
+    packed, aux, P = tbs.pack_chunk(reads, GapOpt(), pool)
+    inp = tbs.chunk_inputs(eng.dev, torch.from_numpy(packed),
+                           torch.from_numpy(aux), P)
+    return eng.dev, P, inp
+
+
+def test_lane_independence():
+    """A read's result must not depend on its lane or its neighbours: the
+    one-thread-per-read CUDA kernel relies on it."""
+    idx = make_idx(seed=3)
+    reads = port_reads(synth_reads(idx, 150, 33))
+    fm, P, inp = _chunk(idx, reads, pool=256)
+    P = dataclasses.replace(P, step_cap=400)  # exercise the fallbacks too
+    ref = search_plain(fm, P, lanes=256, **inp)
+    small = search_plain(fm, P, lanes=64, **inp)
+    for a, b in zip(ref, small):
+        assert torch.equal(a, b)
+    perm = np.random.default_rng(4).permutation(len(reads))
+    fm2, P2, inp2 = _chunk(idx, [reads[i] for i in perm], pool=256)
+    P2 = dataclasses.replace(P2, step_cap=400)
+    assert P2 == P
+    shuf = search_plain(fm2, P2, lanes=64, **inp2)
+    for a, b in zip(ref, shuf):
+        assert torch.equal(a[:len(reads)][torch.from_numpy(perm)],
+                           b[:len(reads)])
+    assert int((ref[2] != 0).sum()) > 0, "world should exercise fallbacks"
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
+@pytest.mark.parametrize("pool,step_cap", [(512, 768), (1024, 1536)])
+def test_search_body_host_build_matches_plain(pool, step_cap):
+    from fastquick_tpu_torch.kernels.build import host_library
+
+    idx = make_idx(seed=2)
+    reads = port_reads(synth_reads(idx, 120, 12))
+    fm, P, inp = _chunk(idx, reads, pool)
+    P = dataclasses.replace(P, step_cap=step_cap)
+    want = search_plain(fm, P, **inp)
+    N = inp["seqs0"].shape[0]
+    i32 = torch.int32
+    out = [torch.zeros((N, 48, 3), dtype=i32)] + [
+        torch.zeros(N, dtype=i32) for _ in range(3)]
+    wid = inp["widths"].clone()
+    args = [inp["seqs0"].to(torch.uint8)] + [
+        inp[k].to(i32).contiguous()
+        for k in ("lens", "md", "use_seed", "n_n")]
+    sp = P.to_array()
+
+    def p(t):
+        return ctypes.c_void_p(t.data_ptr())
+
+    host_library().fq_search_host(
+        p(fm.kernel_table()), fm.host_params().ctypes.data_as(
+            ctypes.c_void_p), sp.ctypes.data_as(ctypes.c_void_p),
+        *[p(a) for a in args], N, p(wid), p(inp["seed_w"].contiguous()),
+        p(out[0]), p(out[1]), p(out[2]), p(out[3]))
+    n_aln, alns, fb, steps = want
+    assert torch.equal(out[1], n_aln) and torch.equal(out[0], alns)
+    assert torch.equal(out[2], fb) and torch.equal(out[3], steps)

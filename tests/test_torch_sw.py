@@ -1,0 +1,168 @@
+"""The port's Smith-Waterman forward pass (plain PyTorch on the CPU)
+against fastquick_tpu's numpy spec and the Pallas SW kernel (interpret
+mode); the port's mate-rescue glue against align/dp.local_align; the SW
+kernel's per-job body, built for the host with g++, against the plain
+version; and the device-mode default of the mate-rescue route.  Every
+comparison is exact."""
+
+import ctypes
+import shutil
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+torch.set_num_threads(1)  # one intra-op thread per test worker
+
+from fastquick_tpu.ops.sw_pallas import (  # noqa: E402
+    sw_forward_batch as jax_sw_forward_batch,
+    sw_forward_reference,
+)
+from fastquick_tpu_torch.ops.sw_kernels import (  # noqa: E402
+    sw_forward_batch,
+    sw_forward_plain,
+)
+
+from test_sw_pallas import QL, RL, _cases  # noqa: E402
+
+
+def _port_forward(refs, queries, rlens, qlens) -> np.ndarray:
+    return sw_forward_batch(*[torch.from_numpy(a) for a in
+                              (refs, queries, rlens, qlens)]).numpy()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_forward_matches_reference(seed):
+    refs, queries, rlens, qlens = _cases(seed, 24)
+    out = _port_forward(refs, queries, rlens, qlens)
+    for b in range(len(refs)):
+        want = sw_forward_reference(refs[b, :rlens[b]], queries[b, :qlens[b]])
+        got = (int(out[b, 0]), int(out[b, 1]), int(out[b, 2]))
+        assert got == want, f"case {b}: {got} vs {want}"
+        assert out[b, 3] == 0
+
+
+def test_forward_matches_pallas_kernel():
+    refs, queries, rlens, qlens = _cases(3, 16)
+    want = np.asarray(jax_sw_forward_batch(
+        jnp.asarray(refs), jnp.asarray(queries), jnp.asarray(rlens),
+        jnp.asarray(qlens), RL=RL, QL=QL))
+    np.testing.assert_array_equal(
+        _port_forward(refs, queries, rlens, qlens), want)
+
+
+def _rescue_jobs(seed, n):
+    """The mate-rescue jobs of tests/test_sw_pallas.py: embedded reads with
+    mismatches, deletions, insertions, and junk."""
+    rng = np.random.default_rng(seed)
+    jobs = []
+    for t in range(n):
+        rl = int(rng.integers(60, 500))
+        ql = int(rng.integers(20, 120))
+        ref = rng.integers(0, 4, rl).astype(np.uint8)
+        q = ref[int(rng.integers(0, max(1, rl - ql))):][:ql].copy()
+        kind = t % 5
+        if kind == 1:
+            for _ in range(rng.binomial(len(q), 0.06)):
+                p = int(rng.integers(0, len(q)))
+                q[p] = (q[p] + rng.integers(1, 4)) % 4
+        elif kind == 2:
+            m = len(q) // 2
+            q = np.concatenate([q[:m], q[m + 2:]])
+        elif kind == 3:
+            m = len(q) // 2
+            q = np.concatenate(
+                [q[:m], rng.integers(0, 4, 2).astype(np.uint8), q[m:]])
+        elif kind == 4:
+            q = rng.integers(0, 4, ql).astype(np.uint8)
+        jobs.append((ref, q))
+    return jobs
+
+
+def test_sw_local_batch_device_matches_local_align():
+    from fastquick_tpu.align.dp import local_align
+    from fastquick_tpu_torch.ops.sw_kernels import sw_local_batch_device
+
+    jobs = _rescue_jobs(21, 40)
+    got = sw_local_batch_device(jobs, "cpu")
+    for i, (ref, q) in enumerate(jobs):
+        score, cigar, coords = local_align(ref, q, thres=1)
+        g_score, g_cigar, g_coords = got[i]
+        if score < 1 or not cigar:
+            assert not g_cigar, f"job {i}"
+            continue
+        assert g_score == score, f"job {i}: {g_score} vs {score}"
+        assert g_cigar == cigar, f"job {i}: {g_cigar} vs {cigar}"
+        assert g_coords == coords, f"job {i}: {g_coords} vs {coords}"
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
+def test_sw_body_host_build_matches_plain():
+    from fastquick_tpu_torch.kernels.build import host_library
+
+    refs, queries, rlens, qlens = _cases(5, 24)
+    B = len(refs)
+    want = sw_forward_plain(*[torch.from_numpy(a) for a in
+                              (refs, queries, rlens, qlens)])
+    refs_t = torch.from_numpy(refs.astype(np.uint8).T.copy())
+    qs_t = torch.from_numpy(queries.astype(np.uint8).T.copy())
+    rl = torch.from_numpy(rlens)
+    ql = torch.from_numpy(qlens)
+    h = torch.zeros((RL, B), dtype=torch.int32)
+    e = torch.zeros_like(h)
+    out = torch.zeros((B, 4), dtype=torch.int32)
+
+    def p(t):
+        return ctypes.c_void_p(t.data_ptr())
+
+    host_library().fq_sw_host(p(refs_t), p(qs_t), p(rl), p(ql), B, p(h),
+                              p(e), p(out))
+    assert torch.equal(out, want)
+
+
+def test_device_sw_default_on_in_device_mode(monkeypatch):
+    """As in fastquick_tpu: the SW kernel is the default mate-rescue route
+    when the driver engaged device-QC mode, FQ_DEVICE_SW=0 opts out, and
+    the jobs go to the device the driver chose."""
+    from fastquick_tpu_torch.align import pe
+    from fastquick_tpu_torch.ops import sw_kernels
+
+    calls = []
+    monkeypatch.setattr(
+        sw_kernels, "sw_local_batch_device",
+        lambda jobs, device: calls.append((len(jobs), device))
+        or [None] * len(jobs))
+    text = np.random.default_rng(0).integers(0, 4, 500).astype(np.uint8)
+
+    class _R:
+        len = 40
+
+    todo = [(([_R(), _R()]), [(100, 200, text[100:140].copy()), None])]
+    monkeypatch.setattr(pe, "DEVICE_SW_DEFAULT", True)
+    monkeypatch.delenv("FQ_DEVICE_SW", raising=False)
+    pe._batch_local_sw(text, todo, "cpu")
+    assert calls == [(1, "cpu")], calls
+
+    calls.clear()
+    monkeypatch.setenv("FQ_DEVICE_SW", "0")
+    pe._batch_local_sw(text, todo, "cpu")
+    assert not calls, "FQ_DEVICE_SW=0 must opt out of the device kernel"
+
+
+def test_align_restores_device_sw_default_when_it_raises(monkeypatch):
+    """Device QC mode turns the SW kernel on for one align only: an align
+    that raises leaves later aligns in the process on their own route."""
+    from fastquick_tpu_torch.align import driver, pe
+
+    def failing_align(argv):
+        pe.DEVICE_SW_DEFAULT = True
+        raise RuntimeError("align failed")
+
+    monkeypatch.setattr(driver, "_run_align", failing_align)
+    assert pe.DEVICE_SW_DEFAULT is False
+    with pytest.raises(RuntimeError, match="align failed"):
+        driver.run_align([])
+    assert pe.DEVICE_SW_DEFAULT is False
