@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive fastquick_tpu_torch's ``align --device_qc`` on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # all phases, one card, ~10 minutes
+    python3 chip_smoke.py            # all phases, one card, ~6 minutes
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -12,16 +12,23 @@ Phases (any failure raises and the script exits non-zero):
    a seeded random 6.5 Mbp text (the production panel's size): width on
    65,536 units of 160 codes, search on 4,096 reads of 150 bp, SW on 2,048
    jobs of 640 x 128; kernel and plain times by CUDA events; the search
-   kernel is also timed alone on one full chunk of 32,768 reads;
+   kernel is also timed alone on one full chunk of 32,768 reads.  The
+   scan path (``FQ_BS_PALLAS=2``: 1,024 lanes x 32 steps, pool 512, step
+   cap 768) runs the same 4,096 reads through its outer round, with the
+   scan kernel and with its plain version, and both must equal the
+   resident kernel at that pool and cap read for read;
 3. small world: the port's ``index`` + ``align --device_qc`` on
    testing/synthworld.build_synth_pe_world, byte-identical on all 12
-   product files to the port's ``align --engine host``;
+   product files to the port's ``align --engine host``, once with the
+   default (resident) search kernel and once with ``FQ_BS_PALLAS=2``;
 4. production: the world of tools/stress_production_scale.py (10,000
    markers, 100,000 read pairs of 150 bp) from --seed; ``align
    --device_qc`` byte-identical to ``align --engine native``; phase
-   times, reads a second, fallback share (fails above a quarter).  The
-   kernel launch counts are zeroed right before this device run and read
-   right after it.
+   times, reads a second, fallback share (fails above a quarter); then
+   the same device run with ``FQ_BS_PALLAS=2`` (byte-identical, its share
+   printed, not gated: pool 512 and cap 768 are the reference's settings
+   for that path).  The kernel launch counts are zeroed right before each
+   device run and read right after it.
 
 The last two lines of stdout are the kernels line and
 {"ok": true, "device": {...}}, printed only when phases 2-4 all ran
@@ -36,12 +43,14 @@ import argparse
 import contextlib
 import filecmp
 import json
+import os
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 REPO = Path(__file__).resolve().parent
 OUT = REPO / "chiprun_out" / "chip_smoke"
@@ -71,6 +80,8 @@ KERNELS = {
               "fastquick_tpu/ops/search_pallas.py:1603"),
     "search": ("fastquick_tpu_torch/csrc/search.cu",
                "fastquick_tpu/ops/search_pallas.py:773"),
+    "scan": ("fastquick_tpu_torch/csrc/scan.cu",
+             "fastquick_tpu/ops/search_pallas.py:154"),
     "sw": ("fastquick_tpu_torch/csrc/sw.cu",
            "fastquick_tpu/ops/sw_pallas.py:52"),
 }
@@ -187,10 +198,18 @@ def phase_kernels(seed: int, dev: str = "cuda", text_len: int = 6_500_000,
     from fastquick_tpu_torch.align.opts import GapOpt
     from fastquick_tpu_torch.index.fmindex import FMIndex
     from fastquick_tpu_torch.kernels import build
-    from fastquick_tpu_torch.ops.batch_search import chunk_inputs, pack_chunk
+    from fastquick_tpu_torch.ops.batch_search import (
+        chunk_inputs,
+        pack_chunk,
+        scan_search,
+    )
     from fastquick_tpu_torch.ops.fm import DeviceFM, cal_width_planes
     from fastquick_tpu_torch.ops.search_kernels import (
+        PlainLanes,
+        ScanLanes,
+        inner_scan,
         resident_search,
+        scan_plain,
         search_plain,
         width,
     )
@@ -272,6 +291,68 @@ def phase_kernels(seed: int, dev: str = "cuda", text_len: int = 6_500_000,
         f"{plain_ms:.1f} ms, bound {bms:.3f} ms ({by}), {steps} steps, "
         f"{n_fb} fallback reads, equal")
 
+    # ---- scan: the same reads, 1024 lanes x 32 steps, pool 512, cap 768 ----
+    lanes, inner = 1024, 32
+    Ps = pack_chunk(reads, opt, 512, kernel="scan")[2]
+    assert (Ps.NP, Ps.step_cap) == (512, 768), Ps
+
+    def scan_run(w, advance=inner_scan, lanes_cls=ScanLanes):
+        return scan_search(fm, Ps, lanes_cls(fm, Ps, lanes, widths=w, **inp),
+                           inner, advance)
+
+    s_out = scan_run(widths0.clone())
+    t0 = time.perf_counter()
+    p_out = scan_run(widths0.clone(), scan_plain, PlainLanes)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    r_out = resident_search(fm, Ps, widths=widths0.clone(), **inp)
+    torch.cuda.synchronize()
+    for ref, what in ((p_out, "its plain version"),
+                      (r_out, "the resident kernel at pool 512, cap 768")):
+        for name, a, b in zip(("n_aln", "alns", "fb", "steps"), s_out, ref):
+            if not torch.equal(a, b):
+                bad = (a != b).reshape(a.shape[0], -1).any(1).nonzero()[:5]
+                raise AssertionError(f"scan path != {what} in {name}, reads "
+                                     f"{bad.flatten().tolist()}")
+    rounds = s_out[4]
+    if p_out[4] != rounds:
+        raise AssertionError(f"scan kernel took {rounds} rounds, its plain "
+                             f"version {p_out[4]}")
+    steps = int(s_out[3].long().sum())
+    n_fb = int((s_out[2][:len(reads)] != 0).sum())
+    clones = [widths0.clone() for _ in range(4)]
+    chunk_ms = cuda_ms(scan_run, 3, setup=lambda i: (clones[i + 1],))
+    kernel_ms = []
+    for i in range(3):
+        ev = []
+
+        def timed(fm_, P_, lanes_, k, ev=ev):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            inner_scan(fm_, P_, lanes_, k)
+            b.record()
+            ev.append((a, b))
+
+        scan_run(widths0.clone(), timed)
+        torch.cuda.synchronize()
+        kernel_ms.append(sum(a.elapsed_time(b) for a, b in ev))
+    ms = sum(kernel_ms) / len(kernel_ms)
+    out_bytes = 12 * N + 12 * int(s_out[0].clamp(0, 48).long().sum())
+    bms, by = bound(in_bytes + out_bytes, steps * OPS_SEARCH_STEP_MIN)
+    res["scan"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0,
+                       bound_ms=bms, bound_by=by, steps=steps,
+                       fallback=n_fb, reads=len(reads), rounds=rounds,
+                       chunk_ms=chunk_ms, lanes=lanes, inner=inner,
+                       busy=int(s_out[5]))
+    log(f"scan   N={len(reads)} {lanes} lanes x {inner} steps, pool 512, "
+        f"cap 768: {rounds} rounds; kernel launches {ms:.3f} ms in all "
+        f"(runs {', '.join(f'{x:.3f}' for x in kernel_ms)}), whole chunk "
+        f"{chunk_ms:.3f} ms, plain path {plain_ms:.1f} ms, bound {bms:.5f} "
+        f"ms ({by}), {steps} steps, {n_fb} fallback reads; equal to its "
+        f"plain version and to the resident kernel at the same pool and cap")
+    del clones
+
     # the kernel alone at one full main-path chunk (BatchEngine.max_batch
     # reads); its plain version would take minutes here
     reads = [_Read(c) for c in _draw_reads(text, chunk_reads, 150, rng)]
@@ -340,6 +421,24 @@ def _align(argv: list[str], logf) -> dict:
     return st
 
 
+def _device_run(argv: list[str], logf, kernel: str) -> tuple[dict, dict]:
+    """One ``align --device_qc`` run with the launch counts zeroed just
+    before it; returns its stats and its launch counts."""
+    from fastquick_tpu_torch.kernels import build
+
+    build.reset_launch_counts()
+    with mock.patch.dict(os.environ,
+                         {"FQ_BS_PALLAS": "2"} if kernel == "scan" else {}):
+        st = _align(argv + ["--device_qc"], logf)
+    launches = dict(build.launch_counts)
+    # the resident kernel counts its launches as "search"
+    ran, idle = ("scan", "search") if kernel == "scan" else ("search", "scan")
+    if st["search_kernel"] != kernel or not launches[ran] or launches[idle]:
+        raise AssertionError(f"{kernel} run used the {st['search_kernel']} "
+                             f"kernel, launches {launches}")
+    return st, launches
+
+
 def _same_outputs(a: str, b: str) -> None:
     for sfx in ALL_OUTPUTS:
         fa, fb = Path(f"{a}.{sfx}"), Path(f"{b}.{sfx}")
@@ -350,7 +449,6 @@ def _same_outputs(a: str, b: str) -> None:
 
 
 def phase_small(work: Path, logf) -> dict:
-    from fastquick_tpu_torch.kernels import build
     from fastquick_tpu_torch.testing.synthworld import build_synth_pe_world
 
     d = work / "small"
@@ -362,10 +460,8 @@ def phase_small(work: Path, logf) -> dict:
         f"{time.perf_counter() - t0:.1f}s")
     common = ["--fastq_1", w["fq1"], "--fastq_2", w["fq2"],
               "--index_prefix", w["idx_prefix"]]
-    build.reset_launch_counts()
-    dev = _align(common + ["--out_prefix", str(d / "dev"), "--device_qc"],
-                 logf)
-    launches = dict(build.launch_counts)
+    dev, launches = _device_run(common + ["--out_prefix", str(d / "dev")],
+                                logf, "resident")
     host = _align(common + ["--out_prefix", str(d / "host"),
                             "--engine", "host"], logf)
     _same_outputs(str(d / "host"), str(d / "dev"))
@@ -373,13 +469,20 @@ def phase_small(work: Path, logf) -> dict:
         f"{host['wall_s']:.1f}s, 12 product files byte-identical; "
         f"launches {launches}; fallback {dev['fallback']}/"
         f"{dev['searched']} {dev['fb_causes']}")
+    scan, scan_launches = _device_run(
+        common + ["--out_prefix", str(d / "scan")], logf, "scan")
+    _same_outputs(str(d / "host"), str(d / "scan"))
+    log(f"small world, scan kernel: device {scan['wall_s']:.1f}s, 12 "
+        f"product files byte-identical to host; {scan['rounds']} rounds, "
+        f"launches {scan_launches}; fallback {scan['fallback']}/"
+        f"{scan['searched']} {scan['fb_causes']}")
     return dict(reads=w["n_reads"], device=dev, host=host,
-                launches=launches)
+                launches=launches, scan=dict(device=scan,
+                                             launches=scan_launches))
 
 
 def phase_production(work: Path, logf, seed: int, pairs: int,
                      **world_kw) -> dict:
-    from fastquick_tpu_torch.kernels import build
     from fastquick_tpu_torch.testing.synthworld import build_production_world
 
     d = work / "prod"
@@ -395,10 +498,8 @@ def phase_production(work: Path, logf, seed: int, pairs: int,
         f"{t_world:.1f}s")
     common = ["--fastq_1", w["fq1"], "--fastq_2", w["fq2"],
               "--index_prefix", w["idx_prefix"]]
-    build.reset_launch_counts()
-    dev = _align(common + ["--out_prefix", str(d / "dev"), "--device_qc"],
-                 logf)
-    launches = dict(build.launch_counts)
+    dev, launches = _device_run(common + ["--out_prefix", str(d / "dev")],
+                                logf, "resident")
     nat = _align(common + ["--out_prefix", str(d / "nat"),
                            "--engine", "native"], logf)
     _same_outputs(str(d / "nat"), str(d / "dev"))
@@ -418,10 +519,28 @@ def phase_production(work: Path, logf, seed: int, pairs: int,
         f"{launches}")
     if share > 0.25:
         raise AssertionError(f"fallback share {share:.3f} above 0.25")
+
+    scan, scan_launches = _device_run(
+        common + ["--out_prefix", str(d / "scan")], logf, "scan")
+    _same_outputs(str(d / "nat"), str(d / "scan"))
+    scan_share = scan["fallback"] / max(scan["searched"], 1)
+    scan_rps = w["n_reads"] / scan["wall_s"]
+    log(f"production, scan kernel: device_qc {scan['wall_s']:.1f}s "
+        f"({scan_rps:.0f} reads/s); 12 product files byte-identical to "
+        f"native; {scan['rounds']} rounds, {scan['busy']} busy steps; "
+        f"launches {scan_launches}")
+    log("production scan-kernel phases: " + ", ".join(
+        f"{k} {v:.2f}s" for k, v in sorted(scan["stage_t"].items(),
+                                           key=lambda kv: -kv[1])))
+    log(f"production scan-kernel fallback (not gated): {scan['fallback']}/"
+        f"{scan['searched']} searched reads ({100 * scan_share:.2f}%), "
+        f"causes {scan['fb_causes']}")
     return dict(reads=w["n_reads"], pairs=pairs, device=dev, native=nat,
                 reads_per_s=rps, native_reads_per_s=w["n_reads"]
                 / nat["wall_s"], fallback_share=share, launches=launches,
-                world_s=t_world)
+                world_s=t_world,
+                scan=dict(device=scan, launches=scan_launches,
+                          reads_per_s=scan_rps, fallback_share=scan_share))
 
 
 # ----------------------------------------------------------------- main
@@ -472,7 +591,8 @@ def main() -> int:
         # the kernels and ok lines carry numbers of every phase
         log(f"partial run ({args.phases}): no kernels or ok line")
         return 0
-    launches = result["production"]["launches"]
+    prod = result["production"]
+    launches = dict(prod["launches"], scan=prod["scan"]["launches"]["scan"])
     missing = [k for k in KERNELS if not launches.get(k)]
     if missing:
         raise AssertionError(f"main path launched no {missing} kernel")

@@ -712,6 +712,9 @@ def _run_align(argv: list[str]) -> int:
         from ..ops.batch_search import BatchEngine
 
         engine = BatchEngine(idx, device=device)
+        notice("Device search kernel: %s (pool %d%s)", engine.kernel,
+               engine.pool, f", {engine.lanes} lanes x {engine.inner} steps"
+               if engine.kernel == "scan" else "")
     elif engine_kind == "native":
         from .engine import NativeEngine
 
@@ -761,12 +764,16 @@ def _run_align(argv: list[str]) -> int:
     if engine_kind == "device":
         LAST_RUN_STATS.update(searched=engine.reads_searched,
                               fallback=engine.reads_fallback,
-                              fb_causes=dict(engine.fb_causes))
-        notice("Device search: %d reads searched, %d redone exactly on the "
-               "host (causes: %s)", engine.reads_searched,
+                              fb_causes=dict(engine.fb_causes),
+                              search_kernel=engine.kernel,
+                              rounds=engine.rounds, busy=engine.busy)
+        notice("Device search (%s kernel): %d reads searched, %d redone "
+               "exactly on the host (causes: %s); %d outer rounds, %d busy "
+               "steps", engine.kernel, engine.reads_searched,
                engine.reads_fallback,
                ", ".join(f"{k} {v}" for k, v in
-                         sorted(engine.fb_causes.items())) or "none")
+                         sorted(engine.fb_causes.items())) or "none",
+               engine.rounds, engine.busy)
     notice("BAM/SAM writer thread busy: %.2fs (record packing + deflate, "
            "overlapped with the phases above)", sam.busy_s)
     t_tmp = realtime()

@@ -1,7 +1,8 @@
 // Host (g++) build of the kernels' per-item bodies, for the CPU tests: the
-// same width_unit / search_read / sw_forward_job code that nvcc compiles
-// into width.cu, search.cu and sw.cu, looped over the items serially with
-// the kernels' argument layouts.  Never used on the product path.
+// same width_unit / search_read / fq_scan_lane / sw_forward_job code that
+// nvcc compiles into width.cu, search.cu, scan.cu and sw.cu, looped over
+// the items serially with the kernels' argument layouts.  Never used on
+// the product path.
 #include <vector>
 
 #include "search_body.cuh"
@@ -42,6 +43,22 @@ extern "C" int fq_search_host(const int32_t* tab, const int32_t* fm_hp,
     fb[r] = o.fb;
     steps[r] = o.steps;
   }
+  return 0;
+}
+
+extern "C" int fq_scan_host(const int32_t* tab, const int32_t* fm_hp,
+                            const int32_t* sp, const uint8_t* seqs,
+                            const int32_t* lens, const int32_t* md,
+                            const int32_t* use_seed, const int32_t* n_n,
+                            int N, int32_t* widths, const int32_t* seed_w,
+                            void* lanes, int B, void* pool, void* freel,
+                            void* heads, int32_t* alns, int k_inner) {
+  const FmView fm = fm_view(tab, fm_hp);
+  const SearchParams P = search_params(sp);
+  for (int b = 0; b < B; ++b)
+    fq_scan_lane(b, fm, P, seqs, lens, md, use_seed, n_n, N, widths, seed_w,
+                 (FqLane*)lanes, (FqSlot*)pool, (uint16_t*)freel,
+                 (int16_t*)heads, alns, k_inner);
   return 0;
 }
 

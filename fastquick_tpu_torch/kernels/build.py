@@ -34,7 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 GXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
 
-launch_counts = {"width": 0, "search": 0, "sw": 0}
+launch_counts = {"width": 0, "search": 0, "scan": 0, "sw": 0}
 build_info: dict = {}
 
 _lock = threading.Lock()
@@ -130,6 +130,9 @@ def cuda_library() -> ctypes.CDLL:
                                             _P]
             lib.fq_search_launch.restype = _I
             lib.fq_search_launch.argtypes = ([_P] * 8 + [_I] + [_P] * 10)
+            lib.fq_scan_launch.restype = _I
+            lib.fq_scan_launch.argtypes = ([_P] * 8 + [_I] + [_P] * 3 + [_I]
+                                           + [_P] * 4 + [_I, _P])
             lib.fq_sw_launch.restype = _I
             lib.fq_sw_launch.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P]
             _cuda_lib = lib
@@ -151,6 +154,9 @@ def host_library() -> ctypes.CDLL:
             lib.fq_width_host.argtypes = [_P, _P, _P, _P, _I, _I, _P, _P]
             lib.fq_search_host.restype = _I
             lib.fq_search_host.argtypes = ([_P] * 8 + [_I] + [_P] * 6)
+            lib.fq_scan_host.restype = _I
+            lib.fq_scan_host.argtypes = ([_P] * 8 + [_I] + [_P] * 3 + [_I]
+                                         + [_P] * 4 + [_I])
             lib.fq_sw_host.restype = _I
             lib.fq_sw_host.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P]
             _host_lib = lib

@@ -6,8 +6,11 @@ one [len, md, use_seed] aux array; there:
 
 1. the width kernel computes bwt_cal_width for both strands of every read
    and of its seed (ops/search_kernels.width);
-2. the search kernel runs bwt_match_gap for every read
-   (ops/search_kernels.resident_search);
+2. a search kernel runs bwt_match_gap for every read: by default the
+   resident kernel, one launch per chunk (ops/search_kernels.
+   resident_search); with ``FQ_BS_PALLAS=2`` the scan kernel, K_INNER
+   steps of B persistent lanes per launch, inside ``scan_search``'s outer
+   round of lane flush and refill (ops/search_kernels.inner_scan);
 3. ``compact_hits`` packs the hit rows densely, so only about one row per
    read comes back to the host.
 
@@ -21,6 +24,7 @@ path.
 
 from __future__ import annotations
 
+import os
 import threading
 
 import numpy as np
@@ -37,7 +41,10 @@ from .search_kernels import (
     FB_LONG,
     FB_NAMES,
     NBUCK,
+    PlainLanes,
+    ScanLanes,
     SearchParams,
+    inner_scan,
     resident_search,
     width,
 )
@@ -45,8 +52,32 @@ from .search_kernels import (
 # ldp (a read position) is packed into the diff word above bit 18 and
 # unpacked with an arithmetic `d >> 18`: longer reads take the host engine
 MAX_READ_LEN = 8191
-DEF_POOL = 1024  # pool slots per read (fallback share falls off a cliff
-# below ~1000 slots on real read mixes)
+
+
+def search_kernel(device_type: str, pallas=None) -> str:
+    """The search kernel a BatchEngine on ``device_type`` runs: "resident"
+    or "scan".  ``pallas`` as the reference's BatchEngine takes it (None =
+    ``FQ_BS_PALLAS``: 1 = resident, the default; 2 = scan; True = scan;
+    "resident" / "scan").  0 / False selects the reference's XLA lockstep
+    path, which has no kernel of its own in the port: on cuda it raises; on
+    the CPU it is the scan path, whose plain version is that path's step
+    loop and outer round."""
+    if pallas is None:
+        pallas = int(os.environ.get("FQ_BS_PALLAS", 1))
+    if pallas is True:
+        pallas = 2
+    kernel = {1: "resident", 2: "scan", "resident": "resident",
+              "scan": "scan"}.get(pallas)
+    if kernel is not None:
+        return kernel
+    if pallas not in (0, False):
+        raise ValueError(f"unknown search kernel selection {pallas!r} "
+                         "(FQ_BS_PALLAS: 1 = resident, 2 = scan)")
+    if device_type != "cpu":
+        raise RuntimeError(
+            "FQ_BS_PALLAS=0: the XLA lockstep search path is not ported to "
+            "the GPU; use 1 (resident kernel) or 2 (scan kernel)")
+    return "scan"
 
 
 def compact_hits(n_aln: torch.Tensor, alns: torch.Tensor, fb: torch.Tensor,
@@ -73,12 +104,14 @@ def compact_hits(n_aln: torch.Tensor, alns: torch.Tensor, fb: torch.Tensor,
     return n_out, rows, offs, fb
 
 
-def pack_chunk(todo, opt: GapOpt, pool: int, step_cap: int = 0):
+def pack_chunk(todo, opt: GapOpt, pool: int, step_cap: int = 0,
+               kernel: str = "resident"):
     """Host half of one chunk: the padded, nibble-packed reversed codes
     (Npad a power of two >= 256, Lpad a multiple of 32), the [len, md,
     use_seed] aux rows (md = -1 marks padding) and the chunk's search
-    parameters (step_cap 0 = auto: max(1536, 6 * Lpad)).  Returns
-    (packed (Npad, Lpad/2) uint8, aux (Npad, 3) int32, SearchParams)."""
+    parameters (step_cap 0 = auto: max(1536, 6 * Lpad) for the resident
+    kernel, max(768, 3 * Lpad) for the scan kernel).  Returns (packed
+    (Npad, Lpad/2) uint8, aux (Npad, 3) int32, SearchParams)."""
     B = len(todo)
     Lmax = max(p.len for p in todo)
     Npad = 256
@@ -98,7 +131,8 @@ def pack_chunk(todo, opt: GapOpt, pool: int, step_cap: int = 0):
     batch_md = int(md[:B].max())
     P = SearchParams(
         L=Lpad, SL=opt.seed_len, NP=int(pool),
-        step_cap=int(step_cap or max(1536, 6 * Lpad)),
+        step_cap=int(step_cap or (max(1536, 6 * Lpad) if kernel == "resident"
+                                  else max(768, 3 * Lpad))),
         s_mm=opt.s_mm, s_gapo=opt.s_gapo, s_gape=opt.s_gape,
         max_gapo=int(min(opt.max_gapo, batch_md)),
         max_gape=opt.max_gape, indel_end_skip=opt.indel_end_skip,
@@ -147,17 +181,78 @@ def chunk_inputs(fm: DeviceFM, packed: torch.Tensor, aux: torch.Tensor,
                 widths=widths, seed_w=seed_w)
 
 
+def scan_search(fm: DeviceFM, P: SearchParams, lanes, inner: int,
+                advance=inner_scan):
+    """The scan path's outer round (the reference's ``_search_kernel``
+    outer_body, fastquick_tpu/ops/batch_search.py:777-823) over a lane
+    state (ScanLanes, or PlainLanes for the plain version) of one chunk.
+
+    Lanes start on reads 0..B-1.  Each round runs ``advance(fm, P, lanes,
+    inner)`` once (inner_scan: K_INNER steps of every lane), flushes the
+    lanes that are done and hold a read, and refills them in lane order
+    with the next reads; a padding row or an id >= N leaves a lane idle
+    for good.  Rounds go on while a lane is searching or reads remain.
+    Reads remain while the next id is below the last real row + 1, not N:
+    every padding row idles one lane, so the reference's loop (to N) never
+    ends when a chunk's padding rows outnumber its lanes; where it ends,
+    both count the same rounds.  Flush and refill are a few tensor ops on
+    the lanes' device; the loop condition is the round's one host sync.
+
+    Returns (n_aln, alns, fb, steps) per read as resident_search does, the
+    number of rounds and the busy steps (those of flushed lanes, a device
+    scalar)."""
+    N, B = lanes.N, lanes.B
+    dev = lanes.rid.device
+    i32 = torch.int32
+    # row N takes the writes of lanes that do not flush
+    out_n = torch.zeros(N + 1, dtype=i32, device=dev)
+    out_al = torch.zeros((N + 1, A_MAX, 3), dtype=i32, device=dev)
+    out_fb = torch.zeros(N + 1, dtype=i32, device=dev)
+    out_steps = torch.zeros(N + 1, dtype=i32, device=dev)
+    row = torch.arange(A_MAX, device=dev)[None, :, None]
+    lanes.refill(torch.ones(B, dtype=torch.bool, device=dev),
+                 torch.arange(B, device=dev))
+    next_read = torch.tensor(min(B, N), device=dev)
+    busy = torch.zeros((), dtype=torch.long, device=dev)
+    rounds = 0
+    while bool((~lanes.done).any() | (next_read < lanes.n_ids)):
+        advance(fm, P, lanes, inner)
+        flush = lanes.done & (lanes.rid >= 0)
+        tgt = torch.where(flush, lanes.rid.long(), N)
+        n_aln = lanes.n_aln
+        out_n[tgt] = n_aln.to(i32)
+        out_al[tgt] = torch.where(row < n_aln[:, None, None], lanes.hits,
+                                  0).to(i32)
+        out_fb[tgt] = lanes.overflow.to(i32)
+        out_steps[tgt] = lanes.steps.to(i32)
+        busy += torch.where(flush, lanes.steps.long(), 0).sum()
+        rank = flush.long().cumsum(0)
+        lanes.refill(flush, next_read + rank - 1)
+        next_read = next_read + rank[-1]
+        rounds += 1
+    return out_n[:N], out_al[:N], out_fb[:N], out_steps[:N], rounds, busy
+
+
 def search_chunk(fm: DeviceFM, packed: torch.Tensor, aux: torch.Tensor,
-                 P: SearchParams):
+                 P: SearchParams, kernel: str = "resident", lanes: int = 0,
+                 inner: int = 0):
     """The device half of one chunk: unpack, widths, search, compaction.
-    Returns (meta (3 Npad,) [n_aln | offs | fb], rows (3 Npad, 3), busy
-    steps) on the device."""
+    ``lanes`` and ``inner`` are the scan kernel's lane count and steps per
+    launch.  Returns (meta (3 Npad,) [n_aln | offs | fb], rows (3 Npad, 3)
+    on the device, busy steps (a device scalar), outer rounds (0 for the
+    resident kernel, which has none))."""
     N = packed.shape[0]
-    n_aln, alns, fb, steps = resident_search(
-        fm, P, **chunk_inputs(fm, packed, aux, P))
+    inp = chunk_inputs(fm, packed, aux, P)
+    if kernel == "scan":
+        cls = PlainLanes if packed.device.type == "cpu" else ScanLanes
+        n_aln, alns, fb, steps, rounds, busy = scan_search(
+            fm, P, cls(fm, P, min(lanes, N), **inp), inner)
+    else:
+        n_aln, alns, fb, steps = resident_search(fm, P, **inp)
+        rounds, busy = 0, steps.long().sum()
     n_c, rows, offs, fb_c = compact_hits(n_aln, alns, fb, 3 * N)
     meta = torch.cat([n_c.to(torch.int32), offs.to(torch.int32), fb_c])
-    return meta, rows, steps.long().sum()
+    return meta, rows, busy, rounds
 
 
 class BatchEngine:
@@ -165,10 +260,24 @@ class BatchEngine:
     the device search cannot finish."""
 
     def __init__(self, idx: ReducedIndex, device: str | torch.device = "cpu",
-                 max_batch: int = 32768, pool: int | None = None,
-                 step_cap: int | None = None):
+                 max_batch: int = 32768, lanes: int | None = None,
+                 pool: int | None = None, inner: int | None = None,
+                 step_cap: int | None = None, pallas=None):
         self.idx = idx
         self.device = torch.device(device)
+        # chosen before anything moves to the device (see search_kernel)
+        self.kernel = search_kernel(self.device.type, pallas)
+        env = os.environ.get
+        self.lanes = lanes or int(env("FQ_BS_LANES", 1024))
+        self.inner = inner or int(env("FQ_BS_INNER", 32))
+        # pool slots per read, 0 = per-kernel auto: the resident kernel's
+        # fallback share falls off a cliff below ~1000 slots on real read
+        # mixes; the scan path keeps the reference's 512
+        self.pool = (pool or int(env("FQ_BS_POOL", 0))
+                     or (1024 if self.kernel == "resident" else 512))
+        # 0 = auto (pack_chunk)
+        self.step_cap = (step_cap if step_cap is not None
+                         else int(env("FQ_BS_STEPCAP", 0)))
         self.dev = DeviceFM.build(idx.fm_fwd, idx.fm_rev, self.device)
         try:
             from ..align.engine import NativeEngine
@@ -177,15 +286,16 @@ class BatchEngine:
         except Exception:
             self.host = HostEngine(idx)
         self.max_batch = max_batch
-        self.pool = pool or DEF_POOL
-        self.step_cap = step_cap or 0  # 0 = auto: max(1536, 6 * Lpad)
         self.last_fallback = 0
         self.last_busy = 0
+        self.last_iters = 0  # rounds * inner, as the reference counts them
         self.last_fb_causes: dict[str, int] = {}
         # totals over the engine's life
         self.reads_searched = 0
         self.reads_fallback = 0
         self.fb_causes: dict[str, int] = {}
+        self.rounds = 0
+        self.busy = 0
 
     def align_batch(self, reads, opt: GapOpt) -> None:
         todo = [p for p in reads if not p.filtered]
@@ -197,6 +307,7 @@ class BatchEngine:
             p.aln = []
         self.last_fallback = 0
         self.last_busy = 0
+        self.last_iters = 0
         self.last_fb_causes = {}
         for s in range(0, len(todo), self.max_batch):
             self._run_chunk(todo[s:s + self.max_batch], opt)
@@ -232,11 +343,13 @@ class BatchEngine:
         if not todo:
             return
         B = len(todo)
-        packed, aux, P = pack_chunk(todo, opt, self.pool, self.step_cap)
+        packed, aux, P = pack_chunk(todo, opt, self.pool, self.step_cap,
+                                    self.kernel)
         Npad = packed.shape[0]
-        meta_d, rows_d, busy = search_chunk(
+        meta_d, rows_d, busy, rounds = search_chunk(
             self.dev, torch.from_numpy(packed).to(self.device),
-            torch.from_numpy(aux).to(self.device), P)
+            torch.from_numpy(aux).to(self.device), P, self.kernel,
+            self.lanes, self.inner)
         meta = meta_d.cpu().numpy()  # [n_aln | offs | fallback]
         n_aln = meta[:Npad]
         offs = meta[Npad:2 * Npad]
@@ -244,6 +357,9 @@ class BatchEngine:
         self.last_fallback += int((fallback[:B] != 0).sum())
         self._count_causes(fallback[:B])
         self.last_busy += int(busy)
+        self.last_iters += rounds * self.inner
+        self.busy += int(busy)
+        self.rounds += rounds
         fb_list = fallback.tolist()
         fb_reads = [p for b, p in enumerate(todo) if fb_list[b]]
         # the exact redo overlaps the hit-row copy and decode (the native

@@ -1,22 +1,27 @@
-"""Width and search kernels (CUDA, csrc/width.cu + csrc/search.cu) with
-their plain PyTorch versions.
+"""Width and search kernels (CUDA, csrc/width.cu, csrc/search.cu and
+csrc/scan.cu) with their plain PyTorch versions.
 
 ``width`` replaces the Pallas _width_kernel (fastquick_tpu/ops/
-search_pallas.py:1603) and ``resident_search`` the Pallas _resident_kernel
-(:773).  Each wrapper launches its CUDA kernel for CUDA tensors (and
-raises if that fails) and runs the plain version for CPU tensors:
+search_pallas.py:1603), ``resident_search`` the Pallas _resident_kernel
+(:773) and ``inner_scan`` the Pallas v1 scan kernel _kernel (:154).  Each
+wrapper launches its CUDA kernel for CUDA tensors (and raises if that
+fails) and runs the plain version for CPU tensors:
 
 - width: ops/fm.cal_width_planes;
 - search: ``search_plain`` below, a lockstep formulation over lanes of
-  reads with per-lane point gather/scatter pool updates and lane refill.
-  Its per-step semantics are those of the reference package's XLA
-  ``_search_kernel`` step (fastquick_tpu/ops/batch_search.py:342-775),
-  which tests/test_search_pallas.py pins equal to the Pallas kernels.
+  reads (PlainLanes) with per-lane point gather/scatter pool updates and
+  lane refill.  Its per-step semantics are those of the reference
+  package's XLA ``_search_kernel`` step (fastquick_tpu/ops/
+  batch_search.py:342-775), which tests/test_search_pallas.py pins equal
+  to the Pallas kernels;
+- scan: ``scan_plain``, K_INNER of those same lockstep steps on a
+  PlainLanes state; the kernel keeps its lanes as ScanLanes records.  The
+  outer round around either is ops/batch_search.scan_search.
 
 Per-read semantics do not depend on the lane a read runs in or on the
 reads beside it (chunk-level parameters aside: max_gapo and the step cap
-come from the whole chunk), which is what lets the CUDA kernel run one
-thread per read.
+come from the whole chunk), which is what lets the CUDA kernels run one
+thread per read or per lane.
 """
 
 from __future__ import annotations
@@ -104,6 +109,20 @@ def width(fm: DeviceFM, units: torch.Tensor, sel: torch.Tensor
 # --------------------------------------------------------------- search
 
 
+def _check_chunk(P: SearchParams, N: int, widths: torch.Tensor,
+                 seed_w: torch.Tensor) -> None:
+    """Raise on a chunk the search kernels do not take."""
+    if not 0 < P.NP < 32768:
+        raise ValueError(f"pool of {P.NP} slots: the next link is 15 bits")
+    if (widths.shape != (2 * N, P.L + 1, 2) or widths.dtype != torch.int32
+            or not widths.is_contiguous()):
+        raise ValueError(f"widths must be contiguous int32 (2N, L+1, 2), "
+                         f"got {widths.dtype} {tuple(widths.shape)}")
+    if seed_w.shape != (2 * N, P.SL + 1, 2):
+        raise ValueError(f"seed_w must be (2N, SL+1, 2), got "
+                         f"{tuple(seed_w.shape)}")
+
+
 def resident_search(fm: DeviceFM, P: SearchParams, seqs0: torch.Tensor,
                     lens: torch.Tensor, md: torch.Tensor,
                     use_seed: torch.Tensor, n_n: torch.Tensor,
@@ -124,18 +143,10 @@ def resident_search(fm: DeviceFM, P: SearchParams, seqs0: torch.Tensor,
                             seed_w)
     build.require_cuda(seqs0, lens, md, use_seed, n_n, widths, seed_w,
                        fm.words)
-    if not 0 < P.NP < 32768:
-        raise ValueError(f"pool of {P.NP} slots: the next link is 15 bits")
     N = seqs0.shape[0]
     dev = seqs0.device
     i32 = torch.int32
-    if (widths.shape != (2 * N, P.L + 1, 2) or widths.dtype != i32
-            or not widths.is_contiguous()):
-        raise ValueError(f"widths must be contiguous int32 (2N, L+1, 2), "
-                         f"got {widths.dtype} {tuple(widths.shape)}")
-    if seed_w.shape != (2 * N, P.SL + 1, 2):
-        raise ValueError(f"seed_w must be (2N, SL+1, 2), got "
-                         f"{tuple(seed_w.shape)}")
+    _check_chunk(P, N, widths, seed_w)
     seqs8 = seqs0.to(torch.uint8).contiguous()
     lens32, md32 = lens.to(i32).contiguous(), md.to(i32).contiguous()
     us32, nn32 = use_seed.to(i32).contiguous(), n_n.to(i32).contiguous()
@@ -167,18 +178,44 @@ def _g(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return t.gather(1, idx[:, None])[:, 0]
 
 
-class _Lanes:
-    """Lane state of the plain search: one row per lane.  Pool, head, free
-    and hit planes carry one dummy column (index NP / NBUCK / A_MAX) that
-    absorbs masked-off scatters."""
+def _n_ids(md: torch.Tensor) -> int:
+    """Rows up to the chunk's last real read (md >= 0; later rows are
+    padding)."""
+    real = (md >= 0).nonzero()
+    return int(real.max()) + 1 if real.numel() else 0
+
+
+class PlainLanes:
+    """Lane state of the plain search: one row per lane, over one chunk's
+    inputs.  Each lane keeps its own copy of its read's codes and width rows
+    (as the reference's lockstep path does), so ``widths`` is left
+    unchanged.  Pool, head, free and hit planes carry one dummy column
+    (index NP / NBUCK / A_MAX) that absorbs masked-off scatters."""
 
     PER_LANE = ("rid", "done", "ch_on", "use_s", "lns", "md0", "max_diff",
                 "n_entries", "free_top", "best_score", "best_cnt", "n_aln",
                 "overflow", "steps", "ch", "pk", "pl", "pai", "pdiff",
                 "heads", "freel", "al", "wid", "sw", "seq")
 
-    def __init__(self, B, NP, L, SL, dev):
+    def __init__(self, fm: DeviceFM, P: SearchParams, B: int, seqs0, lens,
+                 md, use_seed, n_n, widths, seed_w):
+        dev = seqs0.device
+        N, L = seqs0.shape
+        NP, SL = P.NP, P.SL
         lng = torch.long
+        self.fm, self.P, self.N, self.L = fm, P, N, L
+        seq_s0 = seqs0.long()
+        self.seq_all = torch.stack(
+            [seq_s0, torch.where(seq_s0 < 4, 3 - seq_s0, seq_s0)], 1)
+        self.wid_all = torch.stack([widths[:N], widths[N:]], 1).long()
+        self.sw_all = torch.stack([seed_w[:N], seed_w[N:]], 1).long()
+        self.lens_all, self.md_all = lens.long(), md.long()
+        self.us_all, self.nn_all = use_seed.bool(), n_n.long()
+        self.n_ids = _n_ids(md)
+        self.L2 = fm.L2.long()
+        self.iota_np = torch.arange(NP - 1, -1, -1, dtype=lng, device=dev)
+        self.pos_lw = torch.arange(L + 1, device=dev)[None, :]
+        self.ar_amax = torch.arange(A_MAX, device=dev)[None, :]
 
         def z(*shape, dtype=lng):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -204,115 +241,105 @@ class _Lanes:
     def B(self) -> int:
         return self.rid.shape[0]
 
+    @property
+    def hits(self) -> torch.Tensor:
+        """(B, A_MAX, 3) hit rows of each lane."""
+        return self.al[:, :A_MAX]
+
     def keep(self, idx: torch.Tensor) -> None:
         for name in self.PER_LANE:
             setattr(self, name, getattr(self, name)[idx])
 
+    def fresh(self, li: torch.Tensor, r: torch.Tensor) -> None:
+        """Start read r[j] in lane li[j] (the reference's
+        ``fresh_lane_state``).  An id >= N or a padding row (md < 0) leaves
+        the lane idle (rid -1, done); a dead read is done at once."""
+        P, n, NP = self.P, self.fm.n, self.P.NP
+        rc = r.clamp(0, self.N - 1)
+        valid = (r < self.N) & (self.md_all[rc] >= 0)
+        ln = torch.where(valid, self.lens_all[rc], 0)
+        m0 = torch.where(valid, self.md_all[rc], 0)
+        dead = ~valid | (self.nn_all[rc] > m0) | (ln <= 0)
+        self.rid[li] = torch.where(valid, r, -1)
+        self.lns[li] = ln
+        self.md0[li] = m0
+        self.max_diff[li] = m0
+        self.use_s[li] = valid & self.us_all[rc]
+        self.pk[li] = 0
+        self.pl[li] = 0
+        self.pl[li, 0] = n
+        self.pl[li, 1] = n
+        self.pai[li] = 0
+        self.pai[li, 0] = ln | (NP << 16)
+        self.pai[li, 1] = ln | (1 << 13)
+        self.pdiff[li] = 0
+        self.heads[li] = -1
+        self.heads[li, 0] = torch.where(dead, -1, 1)
+        self.freel[li, :NP] = self.iota_np
+        self.free_top[li] = NP - 2
+        self.n_entries[li] = torch.where(dead, 0, 2)
+        self.best_score[li] = ((m0 + 1) * P.s_mm
+                               + (P.max_gapo + 1) * P.s_gapo
+                               + (P.max_gape + 1) * P.s_gape)
+        self.best_cnt[li] = 0
+        self.n_aln[li] = 0
+        self.al[li] = 0
+        self.wid[li] = self.wid_all[rc]
+        self.sw[li] = self.sw_all[rc]
+        self.seq[li] = self.seq_all[rc]
+        self.ch_on[li] = False
+        self.ch[li] = 0
+        self.done[li] = dead
+        self.overflow[li] = 0
+        self.steps[li] = 0
 
-def search_plain(fm: DeviceFM, P: SearchParams, seqs0, lens, md, use_seed,
-                 n_n, widths, seed_w, lanes: int = 8192):
-    """Plain version of the search kernel: all lanes advance one step in
-    lockstep; every _INNER steps finished lanes are flushed and refilled
-    with the next reads, and once no reads are left the lane set shrinks to
-    the lanes still searching.  Same arguments and results as
-    resident_search (``widths`` is left unchanged)."""
-    dev = seqs0.device
-    N, L = seqs0.shape
-    NP, SL, n = P.NP, P.SL, fm.n
-    LW, SLW = L + 1, SL + 1
-    lng = torch.long
+    def refill(self, mask: torch.Tensor, ids: torch.Tensor) -> None:
+        """Start read ids[b] in every lane b where mask (see fresh)."""
+        li = mask.nonzero().squeeze(1)
+        if li.numel():
+            self.fresh(li, ids[li])
 
-    seq_s0 = seqs0.long()
-    seq_all = torch.stack([seq_s0, torch.where(seq_s0 < 4, 3 - seq_s0,
-                                               seq_s0)], 1)  # (N, 2, L)
-    wid_all = torch.stack([widths[:N], widths[N:]], 1).long()
-    sw_all = torch.stack([seed_w[:N], seed_w[N:]], 1).long()
-    lens_all, md_all = lens.long(), md.long()
-    us_all, nn_all = use_seed.bool(), n_n.long()
-    L2 = fm.L2.long()
-
-    out_n = torch.zeros(N, dtype=lng, device=dev)
-    out_al = torch.zeros((N, A_MAX, 3), dtype=lng, device=dev)
-    out_fb = torch.zeros(N, dtype=lng, device=dev)
-    out_steps = torch.zeros(N, dtype=lng, device=dev)
-
-    s = _Lanes(max(1, min(lanes, N)), NP, L, SL, dev)
-    iota_np = torch.arange(NP - 1, -1, -1, dtype=lng, device=dev)
-    pos_lw = torch.arange(LW, device=dev)[None, :]
-    ar_amax = torch.arange(A_MAX, device=dev)[None, :]
-
-    def fresh(li: torch.Tensor, r: torch.Tensor) -> None:
-        valid = md_all[r] >= 0
-        ln = torch.where(valid, lens_all[r], 0)
-        m0 = torch.where(valid, md_all[r], 0)
-        dead = ~valid | (nn_all[r] > m0) | (ln <= 0)
-        s.rid[li] = r
-        s.lns[li] = ln
-        s.md0[li] = m0
-        s.max_diff[li] = m0
-        s.use_s[li] = valid & us_all[r]
-        s.pk[li] = 0
-        s.pl[li] = 0
-        s.pl[li, 0] = n
-        s.pl[li, 1] = n
-        s.pai[li] = 0
-        s.pai[li, 0] = ln | (NP << 16)
-        s.pai[li, 1] = ln | (1 << 13)
-        s.pdiff[li] = 0
-        s.heads[li] = -1
-        s.heads[li, 0] = torch.where(dead, -1, 1)
-        s.freel[li, :NP] = iota_np
-        s.free_top[li] = NP - 2
-        s.n_entries[li] = torch.where(dead, 0, 2)
-        s.best_score[li] = ((m0 + 1) * P.s_mm + (P.max_gapo + 1) * P.s_gapo
-                            + (P.max_gape + 1) * P.s_gape)
-        s.best_cnt[li] = 0
-        s.n_aln[li] = 0
-        s.al[li] = 0
-        s.wid[li] = wid_all[r]
-        s.sw[li] = sw_all[r]
-        s.seq[li] = seq_all[r]
-        s.ch_on[li] = False
-        s.ch[li] = 0
-        s.done[li] = dead
-        s.overflow[li] = 0
-        s.steps[li] = 0
-
-    def step() -> None:
-        B = s.B
-        avail = ~s.done
-        work_chain = avail & s.ch_on
-        can_pop = avail & ~s.ch_on & (s.n_entries > 0)
-        done = s.done | (avail & ~s.ch_on & (s.n_entries == 0))
-        hitcap = can_pop & (s.n_entries > P.max_entries)
+    def step(self) -> None:
+        """One lockstep step of every lane (a lane that is done takes
+        none): the reference's XLA ``inner_step``."""
+        fm, P, B = self.fm, self.P, self.B
+        NP, L, SL, n = P.NP, self.L, P.SL, fm.n
+        LW, SLW = L + 1, SL + 1
+        L2, dev = self.L2, self.rid.device
+        avail = ~self.done
+        work_chain = avail & self.ch_on
+        can_pop = avail & ~self.ch_on & (self.n_entries > 0)
+        done = self.done | (avail & ~self.ch_on & (self.n_entries == 0))
+        hitcap = can_pop & (self.n_entries > P.max_entries)
         done = done | hitcap
         can_pop = can_pop & ~hitcap
 
         # ---- pop: head of the lowest non-empty bucket ----
-        bucket = (s.heads[:, :NBUCK] >= 0).to(torch.int8).argmax(1)
-        slot = _g(s.heads, bucket).clamp(0, NP - 1)
-        k, l = _g(s.pk, slot), _g(s.pl, slot)
-        ai_w, d = _g(s.pai, slot), _g(s.pdiff, slot)
+        bucket = (self.heads[:, :NBUCK] >= 0).to(torch.int8).argmax(1)
+        slot = _g(self.heads, bucket).clamp(0, NP - 1)
+        k, l = _g(self.pk, slot), _g(self.pl, slot)
+        ai_w, d = _g(self.pai, slot), _g(self.pdiff, slot)
         nxt_f = (ai_w >> 16) & 0x7FFF
         nxt = torch.where(nxt_f == NP, -1, nxt_f)
-        s.heads.scatter_(1, torch.where(can_pop, bucket, NBUCK)[:, None],
-                         nxt[:, None])
-        s.freel.scatter_(1, torch.where(can_pop, s.free_top.clamp(0, NP - 1),
-                                        NP)[:, None], slot[:, None])
-        free_top = s.free_top + can_pop.long()
-        n_entries = s.n_entries - can_pop.long()
+        self.heads.scatter_(
+            1, torch.where(can_pop, bucket, NBUCK)[:, None], nxt[:, None])
+        top = self.free_top.clamp(0, NP - 1)
+        self.freel.scatter_(1, torch.where(can_pop, top, NP)[:, None],
+                            slot[:, None])
+        free_top = self.free_top + can_pop.long()
+        n_entries = self.n_entries - can_pop.long()
         a = (ai_w >> 13) & 1
         i = ai_w & 0x1FFF
         state = (ai_w >> 14) & 3
         n_mm, n_gapo, n_gape = d & 63, (d >> 6) & 63, (d >> 12) & 63
         ldp = d >> 18
-        stop = can_pop & (bucket > s.best_score + P.s_mm)
+        stop = can_pop & (bucket > self.best_score + P.s_mm)
         done = done | stop
         alive = can_pop & ~stop
-        m = s.max_diff - (n_mm + n_gapo) - n_gape
+        m = self.max_diff - (n_mm + n_gapo) - n_gape
         alive = alive & (m >= 0)
         i2 = i - 1
-        widf = s.wid.view(B, -1)
+        widf = self.wid.view(B, -1)
 
         def wget(p, f):
             return _g(widf, a * (LW * 2) + p.clamp(0, L) * 2 + f)
@@ -325,7 +352,7 @@ def search_plain(fm: DeviceFM, P: SearchParams, seqs0, lens, md, use_seed,
         expand = alive & ~hit_i0 & ~start_chain
 
         # ---- shared rank queries ----
-        ch = s.ch
+        ch = self.ch
         ck_k = torch.where(work_chain, ch[:, 0], k)
         ck_l = torch.where(work_chain, ch[:, 1], l)
         cur_a = torch.where(work_chain, ch[:, 3], a)
@@ -336,7 +363,7 @@ def search_plain(fm: DeviceFM, P: SearchParams, seqs0, lens, md, use_seed,
         # ---- chain step (bwt_match_exact_alt) ----
         chainish = work_chain | start_chain
         ch_i = torch.where(work_chain, ch[:, 2], i)
-        seqf = s.seq.view(B, -1)
+        seqf = self.seq.view(B, -1)
         cc = _g(seqf, cur_a * L + (ch_i - 1).clamp(0, L - 1))
         si = _g(seqf, a * L + i2.clamp(0, L - 1))
         ccl = cc.clamp(0, 3)
@@ -353,8 +380,8 @@ def search_plain(fm: DeviceFM, P: SearchParams, seqs0, lens, md, use_seed,
              torch.where(start_chain, n_gape, ch[:, 6]),
              torch.where(start_chain, ldp, ch[:, 7])], 1)
         ch = torch.where(chainish[:, None], new_ch, ch)
-        s.ch = ch
-        s.ch_on = ch_cont
+        self.ch = ch
+        self.ch_on = ch_cont
 
         # ---- hits ----
         hit = hit_i0 | ch_hit
@@ -366,42 +393,42 @@ def search_plain(fm: DeviceFM, P: SearchParams, seqs0, lens, md, use_seed,
         ha = torch.where(ch_hit, ch[:, 3], a)
         hldp = torch.where(ch_hit, ch[:, 7], ldp)
         score = hmm * P.s_mm + hgo * P.s_gapo + hge * P.s_gape
-        first_hit = hit & (s.n_aln == 0)
-        s.best_score = torch.where(first_hit, score, s.best_score)
-        s.max_diff = torch.where(first_hit,
-                                 torch.minimum(hmm + hgo + hge + 1, s.md0),
-                                 s.max_diff)
-        eq_best = hit & (score == s.best_score)
-        top2b = hit & ~eq_best & (s.best_cnt > P.max_top2)
-        s.best_cnt = s.best_cnt + torch.where(eq_best, hl - hk + 1, 0)
+        first_hit = hit & (self.n_aln == 0)
+        self.best_score = torch.where(first_hit, score, self.best_score)
+        self.max_diff = torch.where(
+            first_hit, torch.minimum(hmm + hgo + hge + 1, self.md0),
+            self.max_diff)
+        eq_best = hit & (score == self.best_score)
+        top2b = hit & ~eq_best & (self.best_cnt > P.max_top2)
+        self.best_cnt = self.best_cnt + torch.where(eq_best, hl - hk + 1, 0)
         done = done | top2b
         hit = hit & ~top2b
-        dup = ((s.al[:, :A_MAX, 1] == hk[:, None])
-               & (s.al[:, :A_MAX, 2] == hl[:, None])
-               & (ar_amax < s.n_aln[:, None])).any(1)
+        dup = ((self.al[:, :A_MAX, 1] == hk[:, None])
+               & (self.al[:, :A_MAX, 2] == hl[:, None])
+               & (self.ar_amax < self.n_aln[:, None])).any(1)
         do_add = hit & ~((hgo > 0) & dup)
         sh = do_add.nonzero().squeeze(1)
         if sh.numel():
             # gap_shadow on the hit strand's width row (bwtgap.c:81-91)
             hs = ha[sh]
-            planes = s.wid[sh, hs]  # (H, LW, 2)
+            planes = self.wid[sh, hs]  # (H, LW, 2)
             ww, wb = planes[..., 0], planes[..., 1]
             x = (hl - hk + 1)[sh][:, None]
-            in_rng = pos_lw < hldp[sh][:, None]
+            in_rng = self.pos_lw < hldp[sh][:, None]
             eqx = (ww == x) & in_rng
             jcum = eqx.long().cumsum(1)
             ww_new = torch.where(in_rng & (ww > x), ww - x,
                                  torch.where(eqx, n - jcum, ww))
             wb_new = torch.where(eqx, 1, wb)
-            s.wid[sh, hs] = torch.stack([ww_new, wb_new], -1)
-        add_m = do_add & (s.n_aln < A_MAX)
-        overflow = s.overflow | torch.where(do_add & (s.n_aln >= A_MAX),
-                                            FB_AMAX, 0)
+            self.wid[sh, hs] = torch.stack([ww_new, wb_new], -1)
+        add_m = do_add & (self.n_aln < A_MAX)
+        overflow = self.overflow | torch.where(
+            do_add & (self.n_aln >= A_MAX), FB_AMAX, 0)
         arow = torch.stack([hmm | (hgo << 6) | (hge << 12) | (ha << 18)
                             | (score << 19), hk, hl], 1)
-        s.al[torch.arange(B, device=dev),
-             torch.where(add_m, s.n_aln, A_MAX)] = arow
-        s.n_aln = s.n_aln + add_m.long()
+        self.al[torch.arange(B, device=dev),
+                torch.where(add_m, self.n_aln, A_MAX)] = arow
+        self.n_aln = self.n_aln + add_m.long()
 
         # ---- expansion (bwtgap.c:150-214) ----
         occ_w = l - k + 1
@@ -409,26 +436,26 @@ def search_plain(fm: DeviceFM, P: SearchParams, seqs0, lens, md, use_seed,
         allow_m = ~((i2 > 0) & (wb_i2m1 == m - 1) & (wb_i2 == m - 1)
                     & (ww_i2m1 == ww_i2))
         msd = P.max_seed_diff - (n_mm + n_gapo) - n_gape
-        ii = i2 - (s.lns - SL)
-        swf = s.sw.view(B, -1)
+        ii = i2 - (self.lns - SL)
+        swf = self.sw.view(B, -1)
 
         def sget(p, f):
             return _g(swf, a * (SLW * 2) + p.clamp(0, SL) * 2 + f)
 
         s1w, s1b = sget(ii - 1, 0), sget(ii - 1, 1)
         s2w, s2b = sget(ii, 0), sget(ii, 1)
-        seed_on = s.use_s & (i2 > 0) & (ii > 0)
+        seed_on = self.use_s & (i2 > 0) & (ii > 0)
         allow_diff = allow_diff & ~(seed_on & (s1b > msd - 1))
         allow_m = allow_m & ~(seed_on & (s1b == msd - 1) & (s2b == msd - 1)
                               & (s1w == s2w))
         tmp = n_gapo + n_gape
         indel_ok = (expand & allow_diff & (i2 >= P.indel_end_skip + tmp)
-                    & (s.lns - i2 >= P.indel_end_skip + tmp))
+                    & (self.lns - i2 >= P.indel_end_skip + tmp))
         ins_open = indel_ok & (state == STATE_M) & (n_gapo < P.max_gapo)
         ins_ext = indel_ok & (state == STATE_I) & (n_gape < P.max_gape)
         del_open = ins_open
         del_ext = (indel_ok & (state == STATE_D) & (n_gape < P.max_gape)
-                   & ((n_gapo + n_gape < s.max_diff)
+                   & ((n_gapo + n_gape < self.max_diff)
                       | (occ_w < P.max_del_occ)))
         allow_mm = expand & allow_diff & allow_m
 
@@ -475,29 +502,48 @@ def search_plain(fm: DeviceFM, P: SearchParams, seqs0, lens, md, use_seed,
         valid = valid & ~ovf[:, None]
         total = torch.where(ovf, 0, total)
         rank = valid.long().cumsum(1)
-        slots = s.freel.gather(1, (free_top[:, None] - rank).clamp(0, NP - 1))
-        s.free_top = free_top - total
-        s.n_entries = n_entries + total
+        slots = self.freel.gather(
+            1, (free_top[:, None] - rank).clamp(0, NP - 1))
+        self.free_top = free_top - total
+        self.n_entries = n_entries + total
         # LIFO pushes in C order: each child links to its bucket's head
         for c in range(len(cv)):
             v = valid[:, c]
             sc = scores[:, c].clamp(0, NBUCK - 1)
-            prev = _g(s.heads, sc)
+            prev = _g(self.heads, sc)
             aiw = cai[c] | (torch.where(prev < 0, NP, prev) << 16)
             col = torch.where(v, slots[:, c], NP)[:, None]
-            s.pk.scatter_(1, col, ckk[c][:, None])
-            s.pl.scatter_(1, col, cll[c][:, None])
-            s.pai.scatter_(1, col, aiw[:, None])
-            s.pdiff.scatter_(1, col, cdf[c][:, None])
-            s.heads.scatter_(1, torch.where(v, sc, NBUCK)[:, None],
-                             slots[:, c:c + 1])
+            self.pk.scatter_(1, col, ckk[c][:, None])
+            self.pl.scatter_(1, col, cll[c][:, None])
+            self.pai.scatter_(1, col, aiw[:, None])
+            self.pdiff.scatter_(1, col, cdf[c][:, None])
+            self.heads.scatter_(1, torch.where(v, sc, NBUCK)[:, None],
+                                slots[:, c:c + 1])
 
         # ---- per-read step cap -> exact fallback ----
-        steps = s.steps + (~done).long()
+        steps = self.steps + (~done).long()
         capped = ~done & (steps > P.step_cap)
-        s.overflow = overflow | torch.where(capped, FB_STEPCAP, 0)
-        s.done = done | capped
-        s.steps = steps
+        self.overflow = overflow | torch.where(capped, FB_STEPCAP, 0)
+        self.done = done | capped
+        self.steps = steps
+
+
+def search_plain(fm: DeviceFM, P: SearchParams, seqs0, lens, md, use_seed,
+                 n_n, widths, seed_w, lanes: int = 8192):
+    """Plain version of the search kernel: all lanes advance one step in
+    lockstep; every _INNER steps finished lanes are flushed and refilled
+    with the next reads, and once no reads are left the lane set shrinks to
+    the lanes still searching.  Same arguments and results as
+    resident_search (``widths`` is left unchanged)."""
+    dev = seqs0.device
+    N = seqs0.shape[0]
+    lng = torch.long
+    out_n = torch.zeros(N, dtype=lng, device=dev)
+    out_al = torch.zeros((N, A_MAX, 3), dtype=lng, device=dev)
+    out_fb = torch.zeros(N, dtype=lng, device=dev)
+    out_steps = torch.zeros(N, dtype=lng, device=dev)
+    s = PlainLanes(fm, P, max(1, min(lanes, N)), seqs0, lens, md, use_seed,
+                   n_n, widths, seed_w)
 
     next_read = 0
     while True:
@@ -515,7 +561,7 @@ def search_plain(fm: DeviceFM, P: SearchParams, seqs0, lens, md, use_seed,
             if free_lanes.numel():
                 r = torch.arange(next_read, next_read + free_lanes.numel(),
                                  device=dev)
-                fresh(free_lanes, r)
+                s.fresh(free_lanes, r)
                 next_read += free_lanes.numel()
         else:
             live = (~s.done).nonzero().squeeze(1)
@@ -524,7 +570,123 @@ def search_plain(fm: DeviceFM, P: SearchParams, seqs0, lens, md, use_seed,
             if 2 * live.numel() <= s.B:
                 s.keep(live)  # only stragglers left: shrink the lane set
         for _ in range(_INNER):
-            step()
+            s.step()
     i32 = torch.int32
     return (out_n.to(i32), out_al.to(i32), out_fb.to(i32),
             out_steps.to(i32))
+
+
+# ----------------------------------------------------------------- scan
+
+# words of the FqLane record (csrc/search_body.cuh) that the outer round
+# reads and writes; the rest is the kernel's own
+REC_RID, REC_DONE, REC_FRESH, REC_N_ALN, REC_FB, REC_STEPS = range(6)
+REC_WORDS = 32
+
+
+class ScanLanes:
+    """Lane state of the scan kernel (csrc/scan.cu) over one chunk's
+    inputs: one (32,) int32 FqLane record per lane and per-lane slabs of
+    pool, free stack, bucket heads and hit rows.  Same interface as
+    PlainLanes for the outer round (batch_search.scan_search).  Reads are
+    indexed by id in the chunk's tensors: the kernel applies gap_shadow to
+    ``widths`` in place."""
+
+    def __init__(self, fm: DeviceFM, P: SearchParams, B: int, seqs0, lens,
+                 md, use_seed, n_n, widths, seed_w):
+        N = seqs0.shape[0]
+        dev = seqs0.device
+        i32 = torch.int32
+        _check_chunk(P, N, widths, seed_w)
+        self.fm, self.P, self.N = fm, P, N
+        self.seqs8 = seqs0.to(torch.uint8).contiguous()
+        self.lens, self.md = lens.to(i32).contiguous(), md.to(i32).contiguous()
+        self.use_seed = use_seed.to(i32).contiguous()
+        self.n_n = n_n.to(i32).contiguous()
+        self.n_ids = _n_ids(md)
+        self.widths = widths
+        self.seed_w = seed_w.to(i32).contiguous()
+        self.rec = torch.zeros((B, REC_WORDS), dtype=i32, device=dev)
+        self.rec[:, REC_RID] = -1
+        self.rec[:, REC_DONE] = 1
+        self.pool = torch.empty((B, P.NP, 4), dtype=i32, device=dev)
+        self.freel = torch.empty((B, P.NP), dtype=torch.int16, device=dev)
+        self.heads = torch.empty((B, NBUCK), dtype=torch.int16, device=dev)
+        self.alns = torch.zeros((B, A_MAX, 3), dtype=i32, device=dev)
+
+    @property
+    def B(self) -> int:
+        return self.rec.shape[0]
+
+    @property
+    def rid(self) -> torch.Tensor:
+        return self.rec[:, REC_RID]
+
+    @property
+    def done(self) -> torch.Tensor:
+        return self.rec[:, REC_DONE] != 0
+
+    @property
+    def n_aln(self) -> torch.Tensor:
+        return self.rec[:, REC_N_ALN]
+
+    @property
+    def overflow(self) -> torch.Tensor:
+        return self.rec[:, REC_FB]
+
+    @property
+    def steps(self) -> torch.Tensor:
+        return self.rec[:, REC_STEPS]
+
+    @property
+    def hits(self) -> torch.Tensor:
+        return self.alns
+
+    def refill(self, mask: torch.Tensor, ids: torch.Tensor) -> None:
+        """Start read ids[b] in every lane b where mask, on the device: an
+        id >= N or a padding row leaves the lane idle, a dead read is done
+        at once, and any other read is marked fresh for the kernel to set
+        up (fq_lane_init) at its next launch."""
+        r = ids.clamp(0, self.N - 1)
+        valid = mask & (ids < self.N) & (self.md[r] >= 0)
+        dead = ~valid | (self.n_n[r] > self.md[r]) | (self.lens[r] <= 0)
+        new = torch.zeros_like(self.rec)
+        new[:, REC_RID] = torch.where(valid, ids, -1)
+        new[:, REC_DONE] = dead
+        new[:, REC_FRESH] = ~dead
+        self.rec = torch.where(mask[:, None], new, self.rec)
+
+
+def scan_plain(fm: DeviceFM, P: SearchParams, lanes: PlainLanes,
+               K_INNER: int) -> None:
+    """Plain version of the scan kernel: K_INNER lockstep steps of every
+    lane of a PlainLanes state."""
+    for _ in range(K_INNER):
+        lanes.step()
+
+
+def inner_scan(fm: DeviceFM, P: SearchParams, lanes, K_INNER: int) -> None:
+    """K_INNER lockstep steps of every lane (a lane that is done takes
+    none).  For CPU tensors it runs scan_plain on PlainLanes; for CUDA
+    tensors it launches the scan kernel on ScanLanes, or raises."""
+    if lanes.rid.device.type == "cpu":
+        scan_plain(fm, P, lanes, K_INNER)
+        return
+    if not isinstance(lanes, ScanLanes):
+        raise TypeError("the scan kernel runs on ScanLanes, got "
+                        f"{type(lanes).__name__}")
+    s = lanes
+    build.require_cuda(s.rec, s.seqs8, s.widths, s.seed_w, fm.words)
+    lib = build.cuda_library()
+    hp = fm.host_params()
+    sp = P.to_array()
+    stream = torch.cuda.current_stream(s.rec.device).cuda_stream
+    p = build.ptr
+    rc = lib.fq_scan_launch(
+        p(fm.kernel_table()), hp.ctypes.data_as(ctypes.c_void_p),
+        sp.ctypes.data_as(ctypes.c_void_p), p(s.seqs8), p(s.lens), p(s.md),
+        p(s.use_seed), p(s.n_n), s.N, p(s.widths), p(s.seed_w), p(s.rec),
+        s.B, p(s.pool), p(s.freel), p(s.heads), p(s.alns), int(K_INNER),
+        ctypes.c_void_p(stream))
+    build.check(rc, "scan")
+    build.launch_counts["scan"] += 1
