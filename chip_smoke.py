@@ -6,13 +6,16 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. card: the card's name and power limit (nvidia-smi), the kernels' build
-   from fastquick_tpu_torch/csrc (nvcc, sm_90a) and its time;
+   from fastquick_tpu_torch/csrc (nvcc, sm_90a) and its time, and ptxas's
+   registers, stack frame, spills and static shared memory per kernel;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
    exact integer equality, at the main path's shapes, over an FM index of
    a seeded random 6.5 Mbp text (the production panel's size): width on
    65,536 units of 160 codes, search on 4,096 reads of 150 bp, SW on 2,048
-   jobs of 640 x 128; kernel and plain times by CUDA events; the search
-   kernel is also timed alone on one full chunk of 32,768 reads.  The
+   jobs of 640 x 128 and on an edge batch (testing/sw_cases.py); kernel and
+   plain times by CUDA events; the search kernel is also timed alone on one
+   full chunk of 32,768 reads, with the pools' high-water marks (p50, p99,
+   max) of both cells and the time of one step of the longest read.  The
    scan path (``FQ_BS_PALLAS=2``: 1,024 lanes x 32 steps, pool 512, step
    cap 768) runs the same 4,096 reads through its outer round, with the
    scan kernel and with its plain version, and both must equal the
@@ -27,8 +30,10 @@ Phases (any failure raises and the script exits non-zero):
    times, reads a second, fallback share (fails above a quarter); then
    the same device run with ``FQ_BS_PALLAS=2`` (byte-identical, its share
    printed, not gated: pool 512 and cap 768 are the reference's settings
-   for that path).  The kernel launch counts are zeroed right before each
-   device run and read right after it.
+   for that path).  The default run logs the shapes of its SW launches
+   (jobs, RL, QL, true cells), and the SW kernel is timed and checked at
+   those shapes after it.  The kernel launch counts are zeroed right
+   before each device run and read right after it.
 
 The last two lines of stdout are the kernels line and
 {"ok": true, "device": {...}}, printed only when phases 2-4 all ran
@@ -44,6 +49,7 @@ import contextlib
 import filecmp
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -113,6 +119,15 @@ def cuda_ms(fn, reps: int, setup=None) -> float:
     return total / reps
 
 
+def _pctl(t) -> list:
+    """[p50, p99, max] of an integer tensor's values."""
+    import numpy as np
+
+    v = t.cpu().numpy()
+    return [float(np.percentile(v, 50)), float(np.percentile(v, 99)),
+            int(v.max())]
+
+
 def bound(bytes_: float, ops: float) -> tuple[float, str]:
     tb, to = bytes_ / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
@@ -135,13 +150,37 @@ def phase_card() -> dict:
     build.cuda_library()
     dt = time.perf_counter() - t0
     log(f"kernels built in {dt:.1f}s ({build.build_info.get('cuda_dir')})")
-    ptx = Path(build.build_info["cuda_dir"], "ptxas.txt")
-    if ptx.exists():
-        for line in ptx.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log("ptxas: " + line.strip())
+    ptx = parse_ptxas(
+        Path(build.build_info["cuda_dir"], "ptxas.txt").read_text())
+    for name, v in ptx.items():
+        log(f"ptxas {name}: {v}")
     return dict(card=card, kind=torch.cuda.get_device_name(0),
-                count=torch.cuda.device_count(), build_s=dt)
+                count=torch.cuda.device_count(), build_s=dt, ptxas=ptx)
+
+
+def parse_ptxas(text: str) -> dict:
+    """Registers, stack frame, spill stores/loads and static shared memory
+    of each fq_*_kernel from nvcc's -Xptxas -v output."""
+    out: dict = {}
+    cur = None
+    for line in text.splitlines():
+        if "entry function" in line or "Function properties for" in line:
+            m = re.search(r"(?:function|for) '?\S*?(fq_\w+?_kernel)", line)
+            cur = out.setdefault(m.group(1), {}) if m else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_st=int(m.group(2)),
+                       spill_ld=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 # ------------------------------------------------------------- phase 2
@@ -213,10 +252,7 @@ def phase_kernels(seed: int, dev: str = "cuda", text_len: int = 6_500_000,
         search_plain,
         width,
     )
-    from fastquick_tpu_torch.ops.sw_kernels import (
-        sw_forward_batch,
-        sw_forward_plain,
-    )
+    from fastquick_tpu_torch.testing.sw_cases import sw_edge_batch
 
     dev = torch.device(dev)
     rng = np.random.default_rng(seed)
@@ -259,14 +295,19 @@ def phase_kernels(seed: int, dev: str = "cuda", text_len: int = 6_500_000,
     inp = chunk_inputs(fm, torch.from_numpy(packed).to(dev),
                        torch.from_numpy(aux).to(dev), P)
     widths0 = inp.pop("widths")
-    k_out = resident_search(fm, P, widths=widths0.clone(), **inp)
-    p_out = search_plain(fm, P, widths=widths0.clone(), **inp)
+    N = packed.shape[0]
+    hwm_k = torch.zeros(N, dtype=torch.int32, device=dev)
+    hwm_p = torch.zeros_like(hwm_k)
+    k_out = resident_search(fm, P, widths=widths0.clone(), hwm=hwm_k, **inp)
+    p_out = search_plain(fm, P, widths=widths0.clone(), hwm=hwm_p, **inp)
     torch.cuda.synchronize()
-    for name, a, b in zip(("n_aln", "alns", "fb", "steps"), k_out, p_out):
+    for name, a, b in zip(("n_aln", "alns", "fb", "steps", "hwm"),
+                          (*k_out, hwm_k), (*p_out, hwm_p)):
         if not torch.equal(a, b):
             bad = (a != b).reshape(a.shape[0], -1).any(1).nonzero()[:5]
             raise AssertionError(f"search kernel != plain in {name}, reads "
                                  f"{bad.flatten().tolist()}")
+    hwm_cell = _pctl(hwm_k[:len(reads)])
     N = packed.shape[0]
     n_fb = int((k_out[2][:len(reads)] != 0).sum())
     steps = int(k_out[3].long().sum())
@@ -286,10 +327,11 @@ def phase_kernels(seed: int, dev: str = "cuda", text_len: int = 6_500_000,
     bms, by = bound(in_bytes + out_bytes, steps * OPS_SEARCH_STEP_MIN)
     res["search"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0,
                          bound_ms=bms, bound_by=by, steps=steps,
-                         fallback=n_fb, reads=len(reads))
+                         fallback=n_fb, reads=len(reads), hwm=hwm_cell)
     log(f"search N={len(reads)} L={P.L}: kernel {ms:.3f} ms, plain "
         f"{plain_ms:.1f} ms, bound {bms:.3f} ms ({by}), {steps} steps, "
-        f"{n_fb} fallback reads, equal")
+        f"{n_fb} fallback reads, equal (pool high-water marks too); "
+        f"high-water mark p50/p99/max {hwm_cell}")
 
     # ---- scan: the same reads, 1024 lanes x 32 steps, pool 512, cap 768 ----
     lanes, inner = 1024, 32
@@ -361,15 +403,19 @@ def phase_kernels(seed: int, dev: str = "cuda", text_len: int = 6_500_000,
                        torch.from_numpy(aux).to(dev), P)
     widths0 = inp.pop("widths")
     clones = [widths0.clone() for _ in range(4)]
-    out = resident_search(fm, P, widths=clones[0], **inp)
+    hwm_k = torch.zeros(packed.shape[0], dtype=torch.int32, device=dev)
+    out = resident_search(fm, P, widths=clones[0], hwm=hwm_k, **inp)
     steps = int(out[3].long().sum())
+    longest = int(out[3].max())
     ms = cuda_ms(lambda w: resident_search(fm, P, widths=w, **inp), 3,
                  setup=lambda i: (clones[i + 1],))
+    hwm_chunk = _pctl(hwm_k[:chunk_reads])
     res["search"].update(chunk_reads=chunk_reads, chunk_ms=ms,
-                         chunk_steps=steps,
-                         chunk_max_steps=int(out[3].max()))
+                         chunk_steps=steps, chunk_max_steps=longest,
+                         step_us=1e3 * ms / longest, chunk_hwm=hwm_chunk)
     log(f"search N={chunk_reads} (one chunk): kernel {ms:.3f} ms, {steps} "
-        f"steps, longest read {int(out[3].max())} steps")
+        f"steps, longest read {longest} steps, {1e3 * ms / longest:.3f} "
+        f"us a step of it; high-water mark p50/p99/max {hwm_chunk}")
     del inp, widths0, clones, out
 
     # ---- SW: n_sw jobs, RL = 640, QL = 128 ----
@@ -385,14 +431,7 @@ def phase_kernels(seed: int, dev: str = "cuda", text_len: int = 6_500_000,
             q[int(rng.integers(0, ql[b]))] = int(rng.integers(0, 5))
         qs[b, :ql[b]] = q
     args = [torch.from_numpy(a).to(dev) for a in (refs, qs, rl, ql)]
-    o_k = sw_forward_batch(*args)
-    o_p = sw_forward_plain(*args)
-    torch.cuda.synchronize()
-    err = int((o_k - o_p).abs().max())
-    if err:
-        raise AssertionError(f"SW kernel != plain (max abs err {err})")
-    ms = cuda_ms(lambda: sw_forward_batch(*args), 3)
-    plain_ms = cuda_ms(lambda: sw_forward_plain(*args), 1)
+    o_k, err, ms, plain_ms = sw_case(args)
     cells = int((rl.astype(np.int64) * ql).sum())
     bms, by = bound(B * (RL + QL) + 8 * B + 16 * B, cells * OPS_SW_CELL)
     res["sw"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
@@ -400,8 +439,39 @@ def phase_kernels(seed: int, dev: str = "cuda", text_len: int = 6_500_000,
                      planted_best=float(o_k[0::2, 0].float().mean()))
     log(f"sw     B={B} {RL}x{QL}: kernel {ms:.3f} ms, plain "
         f"{plain_ms:.1f} ms, bound {bms:.3f} ms ({by}), equal")
+    edge = [torch.from_numpy(a).to(dev) for a in sw_edge_batch(seed)]
+    sw_case(edge, reps=0)
+    res["sw"]["edge_jobs"] = int(edge[0].shape[0])
+    log(f"sw     edge batch ({edge[0].shape[0]} jobs: ql 1-150 around the "
+        f"strip of 32, rl 0/1/640, all-N, tied maxima): equal")
     build.reset_launch_counts()
     return res
+
+
+def sw_case(args, reps: int = 3):
+    """The SW kernel against its plain version on one batch (raises if
+    they differ); returns (kernel output, max abs err 0, kernel ms, plain
+    ms), the times by CUDA events over `reps` runs (none if 0)."""
+    import torch
+
+    from fastquick_tpu_torch.ops.sw_kernels import (
+        sw_forward_batch,
+        sw_forward_plain,
+    )
+
+    o_k = sw_forward_batch(*args)
+    o_p = sw_forward_plain(*args)
+    torch.cuda.synchronize()
+    err = int((o_k - o_p).abs().max()) if o_k.numel() else 0
+    if err:
+        bad = (o_k != o_p).any(1).nonzero()[:5].flatten().tolist()
+        raise AssertionError(f"SW kernel != plain (max abs err {err}, "
+                             f"jobs {bad})")
+    if not reps:
+        return o_k, err, None, None
+    ms = cuda_ms(lambda: sw_forward_batch(*args), reps)
+    plain_ms = cuda_ms(lambda: sw_forward_plain(*args), 1)
+    return o_k, err, ms, plain_ms
 
 
 # ----------------------------------------------------------- phases 3-4
@@ -421,14 +491,25 @@ def _align(argv: list[str], logf) -> dict:
     return st
 
 
-def _device_run(argv: list[str], logf, kernel: str) -> tuple[dict, dict]:
+def _device_run(argv: list[str], logf, kernel: str,
+                sw_calls: list | None = None) -> tuple[dict, dict]:
     """One ``align --device_qc`` run with the launch counts zeroed just
-    before it; returns its stats and its launch counts."""
+    before it; returns its stats and its launch counts.  If sw_calls is a
+    list, the inputs of each SW kernel launch are appended to it."""
     from fastquick_tpu_torch.kernels import build
+    from fastquick_tpu_torch.ops import sw_kernels
+
+    launch_sw = sw_kernels.sw_forward_batch
+
+    def record_sw(*args):
+        sw_calls.append([t.clone() for t in args])
+        return launch_sw(*args)
 
     build.reset_launch_counts()
     with mock.patch.dict(os.environ,
-                         {"FQ_BS_PALLAS": "2"} if kernel == "scan" else {}):
+                         {"FQ_BS_PALLAS": "2"} if kernel == "scan" else {}), \
+            mock.patch.object(sw_kernels, "sw_forward_batch",
+                              launch_sw if sw_calls is None else record_sw):
         st = _align(argv + ["--device_qc"], logf)
     launches = dict(build.launch_counts)
     # the resident kernel counts its launches as "search"
@@ -498,8 +579,9 @@ def phase_production(work: Path, logf, seed: int, pairs: int,
         f"{t_world:.1f}s")
     common = ["--fastq_1", w["fq1"], "--fastq_2", w["fq2"],
               "--index_prefix", w["idx_prefix"]]
+    sw_calls: list = []
     dev, launches = _device_run(common + ["--out_prefix", str(d / "dev")],
-                                logf, "resident")
+                                logf, "resident", sw_calls)
     nat = _align(common + ["--out_prefix", str(d / "nat"),
                            "--engine", "native"], logf)
     _same_outputs(str(d / "nat"), str(d / "dev"))
@@ -519,6 +601,19 @@ def phase_production(work: Path, logf, seed: int, pairs: int,
         f"{launches}")
     if share > 0.25:
         raise AssertionError(f"fallback share {share:.3f} above 0.25")
+    sw_shapes = []
+    for i, args in enumerate(sw_calls):  # forward, reverse per rescue batch
+        (B, RL), QL = args[0].shape, args[1].shape[1]
+        cells = int((args[2].long() * args[3].long()).sum())
+        _, _, ms, plain_ms = sw_case(args)
+        sw_shapes.append(dict(launch="reverse" if i % 2 else "forward",
+                              jobs=B, RL=RL, QL=QL, cells=cells, ms=ms,
+                              plain_ms=plain_ms))
+        share = cells / max(B * RL * QL, 1)
+        log(f"production SW {sw_shapes[-1]['launch']} launch: {B} jobs, RL "
+            f"{RL}, QL {QL}, {cells} true cells ({share:.1%} of the "
+            f"padded); kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, equal")
+    del sw_calls
 
     scan, scan_launches = _device_run(
         common + ["--out_prefix", str(d / "scan")], logf, "scan")
@@ -538,7 +633,7 @@ def phase_production(work: Path, logf, seed: int, pairs: int,
     return dict(reads=w["n_reads"], pairs=pairs, device=dev, native=nat,
                 reads_per_s=rps, native_reads_per_s=w["n_reads"]
                 / nat["wall_s"], fallback_share=share, launches=launches,
-                world_s=t_world,
+                world_s=t_world, sw_launches=sw_shapes,
                 scan=dict(device=scan, launches=scan_launches,
                           reads_per_s=scan_rps, fallback_share=scan_share))
 

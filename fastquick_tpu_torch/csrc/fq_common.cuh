@@ -33,6 +33,11 @@ FQ_HD int fq_ctz(uint32_t x) {
 }
 
 FQ_HD int fq_min(int a, int b) { return a < b ? a : b; }
+// v[c] of four values by a data-dependent c in 0..3, as selects: an array
+// indexed at run time would go to local memory on the device
+FQ_HD int fq_pick4(const int v[4], int c) {
+  return c == 0 ? v[0] : c == 1 ? v[1] : c == 2 ? v[2] : v[3];
+}
 FQ_HD int fq_max(int a, int b) { return a > b ? a : b; }
 FQ_HD int fq_clamp(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
@@ -62,12 +67,18 @@ FQ_HD FmView fm_view(const int32_t* tab, const int32_t* hp) {
   return f;
 }
 
+// L2[sel][c] (selects only, for the same reason as fq_pick4)
+FQ_HD int fm_L2(const FmView& fm, int sel, int c) {
+  const int fwd = fq_pick4(fm.L2[0], c), rev = fq_pick4(fm.L2[1], c);
+  return sel ? rev : fwd;
+}
+
 // Row of the Occ block holding BWT row bound k + 1 of index `sel`, loaded
 // into r[0..11] (occ[4], words[8]); returns the bases of the block to
 // count (bwt_occ: rows [0..k], sentinel row removed).
 FQ_HD int fm_load(const FmView& fm, int sel, int k, int32_t r[12]) {
   int kk = k + 1;
-  int kp = kk - (kk > fm.primary[sel] ? 1 : 0);
+  int kp = kk - (kk > (sel ? fm.primary[1] : fm.primary[0]) ? 1 : 0);
   kp = fq_clamp(kp, 0, fm.n);
   const int32_t* row = fm.tab + ((int64_t)sel * fm.nbp + (kp >> 7)) * 16;
 #if defined(__CUDA_ARCH__)
@@ -104,8 +115,26 @@ FQ_HD int fm_occ1(const FmView& fm, int sel, int k, int c) {
   return fm_count(r, rem, c);
 }
 
-FQ_HD void fm_occ4(const FmView& fm, int sel, int k, int out[4]) {
-  int32_t r[12];
-  const int rem = fm_load(fm, sel, k, r);
-  for (int c = 0; c < 4; ++c) out[c] = fm_count(r, rem, c);
+// occ of all four bases in the first `rem` bases of the loaded block plus
+// the checkpoints, in one pass: per word the fields' low bits (A), high
+// bits (B) and both (C) are counted, so base 3 occurs C times, 1 A - C,
+// 2 B - C and 0 rem - A - B + C times
+FQ_HD void fm_count4(const int32_t r[12], int rem, int out[4]) {
+  int A = 0, B = 0, C = 0;
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    const int p = rem - 16 * w;  // bases of word w still to count
+    const uint32_t m = p >= 16 ? 0x55555555u
+                       : p > 0 ? 0x55555555u << (32 - 2 * p)
+                               : 0u;
+    const uint32_t lo = (uint32_t)r[4 + w] & m;
+    const uint32_t hi = ((uint32_t)r[4 + w] >> 1) & m;
+    A += fq_popc(lo);
+    B += fq_popc(hi);
+    C += fq_popc(lo & hi);
+  }
+  out[0] = r[0] + rem - A - B + C;
+  out[1] = r[1] + A - C;
+  out[2] = r[2] + B - C;
+  out[3] = r[3] + C;
 }

@@ -11,10 +11,12 @@
 // marked it fresh, takes up to K_INNER steps of the same search body as
 // search.cu (search_body.cuh) and stores the record back.  Pool, free
 // stack, bucket heads and hit rows live in per-lane global slabs
-// (lanes x NP x 16 B: 8 MB at 1024 x 512).  Per-read inputs are read at the
-// lane's read id from the chunk's tensors; gap_shadow updates the chunk's
-// width rows in place, which gives the reference's values because a read
-// lives in exactly one lane.  The outer round stays in PyTorch
+// (lanes x NP x 16 B: 8 MB at 1024 x 512): a read is suspended between
+// launches, so unlike search.cu it keeps its bucket heads there too.
+// Per-read inputs are read at the lane's read id from the
+// chunk's tensors; gap_shadow updates the chunk's width rows in place,
+// which gives the reference's values because a read lives in exactly one
+// lane.  The outer round stays in PyTorch
 // (ops/batch_search.scan_search).
 //
 // What bounds it: per step a chain of dependent L2-resident rank queries
@@ -25,17 +27,13 @@
 
 #include "search_body.cuh"
 
-__global__ void fq_scan_kernel(
-    FmView fm, SearchParams P, const uint8_t* __restrict__ seqs,
-    const int32_t* __restrict__ lens, const int32_t* __restrict__ md,
-    const int32_t* __restrict__ use_seed, const int32_t* __restrict__ n_n,
-    int N, int32_t* widths, const int32_t* __restrict__ seed_w,
-    FqLane* lanes, int B, FqSlot* pool, uint16_t* freel, int16_t* heads,
-    int32_t* alns, int k_inner) {
+__global__ void fq_scan_kernel(FmView fm, SearchParams P, FqChunk ck,
+                               FqLane* lanes, int B, FqSlot* pool,
+                               uint16_t* freel, int16_t* heads,
+                               int32_t* alns, int k_inner) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  fq_scan_lane(b, fm, P, seqs, lens, md, use_seed, n_n, N, widths, seed_w,
-               lanes, pool, freel, heads, alns, k_inner);
+  fq_scan_lane(b, fm, P, ck, lanes, pool, freel, heads, alns, k_inner);
 }
 
 // Chunk inputs as for fq_search_launch (N reads; widths updated in place).
@@ -50,10 +48,10 @@ extern "C" int fq_scan_launch(
   if (B > 0) {
     const int threads = 128;
     const int blocks = (B + threads - 1) / threads;
+    const FqChunk ck = {seqs, lens, md, use_seed, n_n, N, widths, seed_w};
     fq_scan_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        fm_view(tab, fm_hp), search_params(sp), seqs, lens, md, use_seed,
-        n_n, N, widths, seed_w, (FqLane*)lanes, B, (FqSlot*)pool,
-        (uint16_t*)freel, (int16_t*)heads, alns, k_inner);
+        fm_view(tab, fm_hp), search_params(sp), ck, (FqLane*)lanes, B,
+        (FqSlot*)pool, (uint16_t*)freel, (int16_t*)heads, alns, k_inner);
   }
   return (int)cudaGetLastError();
 }

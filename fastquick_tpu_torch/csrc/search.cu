@@ -3,59 +3,98 @@
 // Replaces the Pallas _resident_kernel (fastquick_tpu/ops/search_pallas.py:773,
 // driven by resident_search :1469).  The TPU kernel kept 1024 lanes of
 // per-read state in VMEM as transposed (NP, B) planes, advanced them in
-// lockstep with one-hot passes and flushed/refilled lanes in-kernel.  None
-// of that carries over: one thread runs one read to completion
-// (search_body.cuh), with its pool, free stack, bucket heads and hit rows
-// in a per-read slab of global memory allocated by the wrapper (~18 KB a
-// read at NP = 1024).  The per-read result does not depend on which reads
-// run beside it, which tests/test_torch_search.py pins on the plain
-// version.  The work is a data-dependent chain of L2-resident FM rank
-// queries and pool accesses, so latency and warp divergence bound it, not
-// device-memory bytes.
+// lockstep with one-hot passes and flushed/refilled lanes in-kernel.  Here
+// one thread runs one read to its end (search_body.cuh), and a read's
+// result does not depend on its thread, its workspace's history or the
+// order reads are taken, which tests/test_torch_search.py pins.
+//
+// What bounds it on this card: a launch lasts as long as its longest read
+// (1,537 steps at the step cap), and a step of that read costs the latency
+// of one warp's step.  The 32 reads of a warp take different paths (pop,
+// chain base, hit, expansion with up to 9 pushes), and a lone warp runs
+// their union as a chain of dependent instructions and loads; bytes and
+// operations are far below the card's rates.  On the card the time was
+// nearly flat in the warps an SM holds and fell with the instructions of a
+// step (PERF.md).  So:
+//
+// - a step starts its loads in two rounds, the popped entry and then one
+//   batch for every path (width and seed-width rows, two FM table rows,
+//   the read base), and the rank counts of all four bases of both rows
+//   are shared by the chain and the expansion (fm_count4);
+// - the children of an expansion are a bit mask built in closed form, so
+//   their count and bucket check come before any push and the pushes loop
+//   over the children that exist (no local-memory child array);
+// - one thread a read, in blocks of 128;
+// - each thread's 128 bucket heads in shared memory, interleaved over the
+//   block's threads so a warp's accesses fall in distinct banks; its pool
+//   and free stack are a slab per read in global memory.  A level of
+//   pool slots in shared memory, and a persistent grid that pulls reads
+//   from a counter, were measured and did not pay (PERF.md).
 #include <cuda_runtime.h>
 
 #include "search_body.cuh"
 
-__global__ void fq_search_kernel(
-    FmView fm, SearchParams P, const uint8_t* __restrict__ seqs,
-    const int32_t* __restrict__ lens, const int32_t* __restrict__ md,
-    const int32_t* __restrict__ use_seed, const int32_t* __restrict__ n_n,
-    int N, int32_t* widths, const int32_t* __restrict__ seed_w,
-    FqSlot* pool, uint16_t* freel, int16_t* heads, int32_t* alns,
-    int32_t* n_aln, int32_t* fb, int32_t* steps) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= N) return;
-  const int64_t LW = 2 * (P.L + 1), SW = 2 * (P.SL + 1);
-  const SearchOut o = search_read(
-      fm, P, seqs + (int64_t)r * P.L, lens[r], md[r], use_seed[r], n_n[r],
-      widths + r * LW, widths + (N + r) * LW, seed_w + r * SW,
-      seed_w + (N + r) * SW, pool + (int64_t)r * P.NP,
-      freel + (int64_t)r * P.NP, heads + (int64_t)r * FQ_NBUCK,
-      alns + (int64_t)r * FQ_A_MAX * 3);
-  n_aln[r] = o.n_aln;
-  fb[r] = o.fb;
-  steps[r] = o.steps;
+#define FQ_SEARCH_THREADS 128
+
+// dynamic shared memory of a block: the bucket heads of each thread
+static const size_t kSearchSmem =
+    (size_t)FQ_SEARCH_THREADS * sizeof(int16_t) * FQ_NBUCK;
+
+__global__ void __launch_bounds__(FQ_SEARCH_THREADS)
+    fq_search_kernel(FmView fm, SearchParams P, FqChunk ck, FqSlot* pool,
+                     uint16_t* freel, FqOut out) {
+  extern __shared__ int16_t fq_heads[];
+  const int t = threadIdx.x;
+  const int rid = blockIdx.x * FQ_SEARCH_THREADS + t;
+  if (rid >= ck.N) return;
+  const FqWork w = {pool + (int64_t)rid * P.NP, freel + (int64_t)rid * P.NP,
+                    fq_heads + t, nullptr, FQ_SEARCH_THREADS};
+  fq_resident_read(fm, P, ck, rid, w, out);
+}
+
+// The share of each SM's unified L1/shared memory to give shared memory
+// for `blocks` blocks: what the blocks an SM will hold need (1 KB a block
+// is the system's), so the rest stays L1 cache for the width rows, the
+// pool slabs and the FM table rows.
+static cudaError_t fq_search_carveout(int blocks) {
+  int dev = 0, sms = 0, smem_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(
+        &smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (e != cudaSuccess) return e;
+  const size_t per_sm = (blocks + sms - 1) / sms;
+  const size_t need = per_sm * (kSearchSmem + 1024);
+  const int pct = (int)((100 * need + smem_sm - 1) / smem_sm);
+  return cudaFuncSetAttribute(fq_search_kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              pct < 100 ? pct : 100);
 }
 
 // seqs: (N, L) uint8 reversed codes; lens/md/use_seed/n_n: (N,) int32;
 // widths: (2N, L+1, 2) int32 (strand-0 rows first), updated in place;
 // seed_w: (2N, SL+1, 2); pool: (N, NP) slots of 4 int32; freel: (N, NP)
-// uint16; heads: (N, 128) int16; alns: (N, 48, 3) int32, zeroed;
-// outputs n_aln/fb/steps: (N,).  sp: SearchParams host array.
+// uint16; alns: (N, 48, 3) int32, zeroed; outputs n_aln/fb/steps/hwm:
+// (N,).  sp: SearchParams host array.
 extern "C" int fq_search_launch(
     const int32_t* tab, const int32_t* fm_hp, const int32_t* sp,
     const uint8_t* seqs, const int32_t* lens, const int32_t* md,
     const int32_t* use_seed, const int32_t* n_n, int N, int32_t* widths,
-    const int32_t* seed_w, void* pool, void* freel, void* heads,
-    int32_t* alns, int32_t* n_aln, int32_t* fb, int32_t* steps,
+    const int32_t* seed_w, void* pool, void* freel, int32_t* alns,
+    int32_t* n_aln, int32_t* fb, int32_t* steps, int32_t* hwm,
     void* stream) {
   if (N > 0) {
-    const int threads = 64;
-    const int blocks = (N + threads - 1) / threads;
-    fq_search_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        fm_view(tab, fm_hp), search_params(sp), seqs, lens, md, use_seed,
-        n_n, N, widths, seed_w, (FqSlot*)pool, (uint16_t*)freel,
-        (int16_t*)heads, alns, n_aln, fb, steps);
+    const int blocks = (N + FQ_SEARCH_THREADS - 1) / FQ_SEARCH_THREADS;
+    const cudaError_t e = fq_search_carveout(blocks);
+    if (e != cudaSuccess) return (int)e;
+    const FqChunk ck = {seqs, lens, md, use_seed, n_n, N, widths, seed_w};
+    const FqOut out = {alns, n_aln, fb, steps, hwm};
+    fq_search_kernel<<<blocks, FQ_SEARCH_THREADS, kSearchSmem,
+                       (cudaStream_t)stream>>>(
+        fm_view(tab, fm_hp), search_params(sp), ck, (FqSlot*)pool,
+        (uint16_t*)freel, out);
   }
   return (int)cudaGetLastError();
 }

@@ -15,12 +15,15 @@
 //   that ends the search is not counted) and the FB_* fallback-cause bits.
 //
 // Pool slot identity is internal (slots only thread the bucket lists), so
-// slots come from a bump pointer plus a stack of recycled slots.
+// which slot an entry takes cannot change a result.  Slots come from a
+// bump pointer plus a stack of recycled ones; the slot popped in a step is
+// held in a register and given to the step's first child.
 //
 // The search is resumable: fq_lane_init sets a read up and fq_lane_step
 // advances it by one step, with everything it carries between steps in an
-// FqLane record plus the read's workspace.  search_read (search.cu) runs a
-// read to the end; fq_scan_lane (scan.cu) suspends it every K_INNER steps.
+// FqLane record plus the read's workspace.  fq_resident_read (search.cu)
+// runs a read to the end; fq_scan_lane (scan.cu) suspends it every
+// K_INNER steps.
 #pragma once
 
 #include "fq_common.cuh"
@@ -59,51 +62,50 @@ struct alignas(16) FqSlot {
   int32_t k, l, ai, d;
 };
 
-struct SearchOut {
-  int n_aln, fb, steps;
-};
-
 // code of read strand `a` at position p (strand 1 is the complement)
 FQ_HD int fq_seq_at(const uint8_t* seq0, int a, int p) {
   const int c = seq0[p];
   return (a == 0 || c > 3) ? c : 3 - c;
 }
 
-// bwtgap.c:81-91 on the [w, bid] pairs of one width row
+// [w, bid] pair p of a width row (rows start 8-byte aligned)
+FQ_HD void fq_wpair(const int32_t* row, int p, int& w, int& bid) {
+#if defined(__CUDA_ARCH__)
+  const int2 v = *reinterpret_cast<const int2*>(row + 2 * p);
+  w = v.x;
+  bid = v.y;
+#else
+  w = row[2 * p];
+  bid = row[2 * p + 1];
+#endif
+}
+
+#define FQ_SHADOW_BATCH 16
+
+// bwtgap.c:81-91 on the [w, bid] pairs of one width row.  The loads of a
+// batch of positions are started before its stores, so a row costs a few
+// memory round trips rather than one a position.
 FQ_HD void fq_gap_shadow(int32_t* wd, int ldp, int x, int n, int L) {
   const int end = fq_min(ldp, L + 1);
   int j = 0;
-  for (int p = 0; p < end; ++p) {
-    const int w = wd[2 * p];
-    if (w > x) {
-      wd[2 * p] = w - x;
-    } else if (w == x) {
-      ++j;
-      wd[2 * p] = n - j;
-      wd[2 * p + 1] = 1;
+  for (int p0 = 0; p0 < end; p0 += FQ_SHADOW_BATCH) {
+    int w[FQ_SHADOW_BATCH];
+#pragma unroll
+    for (int u = 0; u < FQ_SHADOW_BATCH; ++u)
+      w[u] = p0 + u < end ? wd[2 * (p0 + u)] : 0;
+#pragma unroll
+    for (int u = 0; u < FQ_SHADOW_BATCH; ++u) {
+      const int p = p0 + u;
+      if (p >= end) break;
+      if (w[u] > x) {
+        wd[2 * p] = w[u] - x;
+      } else if (w[u] == x) {
+        ++j;
+        wd[2 * p] = n - j;
+        wd[2 * p + 1] = 1;
+      }
     }
   }
-}
-
-struct FqChildren {
-  FqSlot c[9];
-  int score[9];
-  int n;
-  bool bad_score;
-};
-
-FQ_HD void fq_child(FqChildren& ch, const SearchParams& P, int a, int i,
-                    int k, int l, int mm, int go, int ge, int state,
-                    int ldp) {
-  const int sc = mm * P.s_mm + go * P.s_gapo + ge * P.s_gape;
-  FqSlot& s = ch.c[ch.n];
-  s.k = k;
-  s.l = l;
-  s.ai = (state << 14) | (a << 13) | i;
-  s.d = mm | (go << 6) | (ge << 12) | (ldp << 18);
-  ch.score[ch.n] = sc;
-  ch.bad_score = ch.bad_score || sc >= FQ_NBUCK;
-  ++ch.n;
 }
 
 // One read's inputs.  seq0: L reversed read codes (strand 0).  wid0/wid1:
@@ -116,14 +118,19 @@ struct FqRead {
   const int32_t *sw0, *sw1;
 };
 
-// One read's workspace.  pool/freel: NP slots; heads: FQ_NBUCK entries;
-// alns: FQ_A_MAX rows of [packed, k, l].
+// One read's workspace: NP pool slots and the NP entries of their free
+// stack; the FQ_NBUCK bucket heads, head b at [b * hs] (the resident
+// kernel interleaves its threads' heads in shared memory, hs = threads of
+// the block); alns: FQ_A_MAX rows of [packed, k, l].
 struct FqWork {
   FqSlot* pool;
   uint16_t* freel;
   int16_t* heads;
   int32_t* alns;
+  int hs;
 };
+
+FQ_HD int16_t& fq_head(const FqWork& w, int b) { return w.heads[b * w.hs]; }
 
 // Everything the search carries from one step to the next besides the
 // workspace, so a read can be suspended after any step and resumed later
@@ -135,12 +142,13 @@ struct alignas(16) FqLane {
   int32_t done;      // the search ended (or the read is dead)
   int32_t fresh;     // set by the outer round: init the read first
   int32_t n_aln, overflow, steps;
-  int32_t bump, ftop, n_entries;
+  int32_t n_entries, hwm;  // entries held; the most held at once
+  int32_t bump, top;        // the pool's bump pointer, free-stack top
   int32_t best_score, best_cnt, max_diff;
   int32_t ch_on;
   uint32_t bm[4];  // non-empty buckets
   int32_t ch[8];   // exact-walk chain register
-  int32_t pad[7];
+  int32_t pad[6];
 };
 static_assert(sizeof(FqLane) == 128, "FqLane must stay 32 int32 words");
 
@@ -174,64 +182,141 @@ FQ_HD void fq_lane_init(FqLane& s, const SearchParams& P, int n,
   s.ch_on = 0;
   s.ch[0] = s.ch[1] = s.ch[2] = s.ch[3] = 0;
   s.ch[4] = s.ch[5] = s.ch[6] = s.ch[7] = 0;
+  s.hwm = 0;
   s.done = (r.md < 0 || n_n > r.md || r.len <= 0) ? 1 : 0;
   if (s.done) return;
-  const int NP = P.NP;
-  w.pool[0].k = 0; w.pool[0].l = n; w.pool[0].ai = r.len | (NP << 16);
-  w.pool[0].d = 0;
-  w.pool[1].k = 0; w.pool[1].l = n; w.pool[1].ai = r.len | (1 << 13);
-  w.pool[1].d = 0;
-  w.heads[0] = 1;
+  const FqSlot s0 = {0, n, r.len | (P.NP << 16), 0};
+  const FqSlot s1 = {0, n, r.len | (1 << 13), 0};
+  w.pool[0] = s0;
+  w.pool[1] = s1;
+  fq_head(w, 0) = 1;
   s.bm[0] = 1u; s.bm[1] = 0u; s.bm[2] = 0u; s.bm[3] = 0u;
   s.bump = 2;
-  s.ftop = 0;
-  s.n_entries = 2;
+  s.top = 0;
+  s.n_entries = s.hwm = 2;
   s.best_score = (r.md + 1) * P.s_mm + (P.max_gapo + 1) * P.s_gapo +
                  (P.max_gape + 1) * P.s_gape;
   s.best_cnt = 0;
   s.max_diff = r.md;
 }
 
+// What the children of one expansion share (bwtgap.c:150-214).
+struct FqExpand {
+  int a, i2, k, l, n_mm, n_gapo, n_gape, ldp, si;
+  bool ins_open, ins_ext, del_open, del_ext, allow_mm;
+  int kk[4], ll[4];  // the interval of each base's backward extension
+};
+
+// The children of an expansion as a mask of bits x in C push order: x = 0
+// the insertion, 1..4 the deletions c = x - 1, 5..8 the mismatches j =
+// x - 4 (j = 4: the read's own base, exact unless it is an N).  Child x
+// is of kind fq_kind(x) and goes to score bucket bk[kind]: 0 the
+// insertion's, 1 the deletions', 2 the mismatches', 3 the own base's.
+FQ_HD int fq_kind(int x) { return x == 0 ? 0 : x <= 4 ? 1 : x < 8 ? 2 : 3; }
+
+FQ_HD uint32_t fq_children(const FqExpand& X, const SearchParams& P,
+                           int bk[4]) {
+  const int s0 = X.n_mm * P.s_mm + X.n_gapo * P.s_gapo + X.n_gape * P.s_gape;
+  uint32_t v = 0;  // bases with a nonempty extension
+#pragma unroll
+  for (int c = 0; c < 4; ++c) v |= (X.kk[c] <= X.ll[c] ? 1u : 0u) << c;
+  const bool ins = X.ins_open || X.ins_ext;
+  const bool del = X.del_open || X.del_ext;
+  uint32_t mask = (ins ? 1u : 0u) | (del ? v << 1 : 0u);
+  if (X.allow_mm) {
+#pragma unroll
+    for (int j = 1; j <= 3; ++j)
+      mask |= ((v >> ((X.si + j) & 3)) & 1u) << (4 + j);
+  }
+  if ((X.allow_mm || X.si < 4) && ((v >> (X.si & 3)) & 1u)) mask |= 1u << 8;
+  bk[0] = s0 + X.ins_open * P.s_gapo + X.ins_ext * P.s_gape;
+  bk[1] = s0 + X.del_open * P.s_gapo + X.del_ext * P.s_gape;
+  bk[2] = s0 + P.s_mm;
+  bk[3] = X.allow_mm && X.si > 3 ? bk[2] : s0;
+  return mask;
+}
+
+// Child x (a bit of fq_children's mask): its pool entry, next link clear.
+FQ_HD FqSlot fq_child(const FqExpand& X, int x) {
+  const bool is_ins = x == 0, is_del = x >= 1 && x <= 4, is_mm = x >= 5;
+  const int c = is_del ? x - 1 : (X.si + x - 4) & 3;
+  const bool mm = is_mm && (x < 8 || (X.allow_mm && X.si > 3));
+  const int n_mm = X.n_mm + (mm ? 1 : 0);
+  const int go = X.n_gapo + (is_ins ? X.ins_open : is_del ? X.del_open : 0);
+  const int ge = X.n_gape + (is_ins ? X.ins_ext : is_del ? X.del_ext : 0);
+  const int state = is_ins ? FQ_STATE_I : is_del ? FQ_STATE_D : FQ_STATE_M;
+  const int i = is_del ? X.i2 + 1 : X.i2;
+  const int ldp = is_mm && !mm ? X.ldp : i;
+  FqSlot e;
+  e.k = is_ins ? X.k : fq_pick4(X.kk, c);
+  e.l = is_ins ? X.l : fq_pick4(X.ll, c);
+  e.ai = (state << 14) | (X.a << 13) | i;
+  e.d = n_mm | (go << 6) | (ge << 12) | (ldp << 18);
+  return e;
+}
+
+// A slot for a new entry: *x, the slot popped in this step, if it is not
+// yet reused (then *x = -1), else the most recently freed slot, else a
+// fresh one.
+FQ_HD int fq_take_slot(FqLane& s, const FqWork& w, int* x) {
+  const int slot = *x >= 0 ? *x : s.top > 0 ? w.freel[--s.top] : s.bump++;
+  *x = -1;
+  return slot;
+}
+
+// LIFO push of one entry onto bucket b's list.
+FQ_HD void fq_push(FqLane& s, const FqWork& w, int NP, FqSlot e, int b,
+                   int* x) {
+  const int slot = fq_take_slot(s, w, x);
+  const uint32_t word = fq_bm_word(s, b >> 5);
+  const bool nonempty = (word >> (b & 31)) & 1u;
+  e.ai |= (nonempty ? (int)fq_head(w, b) : NP) << 16;
+  w.pool[slot] = e;
+  fq_head(w, b) = (int16_t)slot;
+  fq_bm_put(s, b >> 5, word | (1u << (b & 31)));
+  ++s.n_entries;
+}
+
 // One step of a read that is not done: pop (or one chain base), hits,
 // expansion.  A step that ends the search sets `done` and is not counted;
-// the per-read step cap counts the others.
+// the per-read step cap counts the others.  Whatever path a read takes,
+// the step starts its memory reads in two rounds: the popped entry, then
+// one batch (its width and seed-width rows, the two FM table rows and the
+// read base), so the paths of a warp's diverged reads wait on the same
+// loads.
 FQ_HD void fq_lane_step(FqLane& s, const FmView& fm, const SearchParams& P,
                         const FqRead& r, const FqWork& w) {
   const int n = fm.n, NP = P.NP, L = P.L, SL = P.SL;
   const int len = r.len;
-  FqSlot* pool = w.pool;
-  int16_t* heads = w.heads;
   int32_t* alns = w.alns;
   int* ch = s.ch;
   const bool work_chain = s.ch_on;
-  int k = 0, l = 0, a = 0, i = 0, state = 0;
+  int k = 0, l = 0, a = 0, i = 0, state = 0, bucket = 0;
   int n_mm = 0, n_gapo = 0, n_gape = 0, ldp = 0, m = 0;
-  int ww_i2 = 0, ww_i2m1 = 0, wb_i2 = 0, wb_i2m1 = 0;
-  bool alive = false, done = false;
+  int x = -1;  // the popped slot until it is reused or freed
   if (!work_chain) {
     // empty stack, or C's `n_entries > max_entries` break
     if (s.n_entries == 0 || s.n_entries > P.max_entries) {
       s.done = 1;
       return;
     }
-    const int bucket = s.bm[0]   ? fq_ctz(s.bm[0])
-                       : s.bm[1] ? 32 + fq_ctz(s.bm[1])
-                       : s.bm[2] ? 64 + fq_ctz(s.bm[2])
-                       : s.bm[3] ? 96 + fq_ctz(s.bm[3])
-                                 : -1;
+    bucket = s.bm[0]   ? fq_ctz(s.bm[0])
+             : s.bm[1] ? 32 + fq_ctz(s.bm[1])
+             : s.bm[2] ? 64 + fq_ctz(s.bm[2])
+             : s.bm[3] ? 96 + fq_ctz(s.bm[3])
+                       : -1;
     if (bucket < 0) {
       s.done = 1;
       return;
     }
-    const int slot = heads[bucket];
-    const FqSlot e = pool[slot];
+    x = fq_head(w, bucket);
+    const FqSlot e = w.pool[x];
     const int nxt = (e.ai >> 16) & 0x7FFF;
     if (nxt == NP)
       fq_bm_put(s, bucket >> 5,
                 fq_bm_word(s, bucket >> 5) & ~(1u << (bucket & 31)));
     else
-      heads[bucket] = (int16_t)nxt;
-    w.freel[s.ftop++] = (uint16_t)slot;
+      fq_head(w, bucket) = (int16_t)nxt;
     --s.n_entries;
     k = e.k;
     l = e.l;
@@ -242,20 +327,48 @@ FQ_HD void fq_lane_step(FqLane& s, const FmView& fm, const SearchParams& P,
     n_gapo = (e.d >> 6) & 63;
     n_gape = (e.d >> 12) & 63;
     ldp = e.d >> 18;
+    m = s.max_diff - (n_mm + n_gapo) - n_gape;
+  }
+
+  // ---- the step's batch of loads, the same for every path ----
+  // the FM rows and the base of the chain's next base, or of the popped
+  // entry's expansion (i - 1 on strand a)
+  const int cur_a = work_chain ? ch[3] : a;
+  const int sel = 1 - cur_a;
+  const int ck = work_chain ? ch[0] : k;
+  const int cl = work_chain ? ch[1] : l;
+  const int ci = work_chain ? ch[2] : i;
+  const int base = fq_seq_at(r.seq0, cur_a, fq_clamp(ci - 1, 0, L - 1));
+  int32_t row_k[12], row_l[12];
+  const int rem_k = fm_load(fm, sel, ck - 1, row_k);
+  const int rem_l = fm_load(fm, sel, cl, row_l);
+  // the popped entry's width and seed-width rows
+  int ww_i2, wb_i2, ww_i2m1, wb_i2m1, sw1w, sw1b, sw2w, sw2b;
+  const int ii = i - 1 - (len - SL);
+  fq_wpair(a == 0 ? r.wid0 : r.wid1, fq_clamp(i - 1, 0, L), ww_i2, wb_i2);
+  fq_wpair(a == 0 ? r.wid0 : r.wid1, fq_clamp(i - 2, 0, L), ww_i2m1,
+           wb_i2m1);
+  fq_wpair(a == 0 ? r.sw0 : r.sw1, fq_clamp(ii - 1, 0, SL), sw1w, sw1b);
+  fq_wpair(a == 0 ? r.sw0 : r.sw1, fq_clamp(ii, 0, SL), sw2w, sw2b);
+
+  int cnt_k[4], cnt_l[4], kk[4], ll[4];  // each base's backward extension
+  fm_count4(row_k, rem_k, cnt_k);
+  fm_count4(row_l, rem_l, cnt_l);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int L2c = fm_L2(fm, sel, c);
+    kk[c] = L2c + cnt_k[c] + 1;
+    ll[c] = L2c + cnt_l[c];
+  }
+
+  bool alive = false, done = false;
+  if (!work_chain) {
     if (bucket > s.best_score + P.s_mm) {  // nothing better is left
+      w.freel[s.top++] = (uint16_t)x;
       s.done = 1;
       return;
     }
-    m = s.max_diff - (n_mm + n_gapo) - n_gape;
-    if (m >= 0) {
-      const int32_t* wd = a == 0 ? r.wid0 : r.wid1;
-      const int p1 = fq_clamp(i - 1, 0, L), p2 = fq_clamp(i - 2, 0, L);
-      ww_i2 = wd[2 * p1];
-      wb_i2 = wd[2 * p1 + 1];
-      ww_i2m1 = wd[2 * p2];
-      wb_i2m1 = wd[2 * p2 + 1];
-      alive = !(i > 0 && m < wb_i2);
-    }
+    alive = m >= 0 && !(i > 0 && m < wb_i2);
   }
   const bool hit_i0 = alive && i == 0;
   const bool start_chain = alive && i > 0 && m == 0;
@@ -264,22 +377,14 @@ FQ_HD void fq_lane_step(FqLane& s, const FmView& fm, const SearchParams& P,
   // ---- exact walk (bwt_match_exact_alt), one base per step ----
   bool ch_hit = false;
   if (work_chain || start_chain) {
-    const int cur_a = work_chain ? ch[3] : a;
-    const int sel = 1 - cur_a;
-    const int ck = work_chain ? ch[0] : k;
-    const int cl = work_chain ? ch[1] : l;
-    const int ch_i = work_chain ? ch[2] : i;
-    const int cc = fq_seq_at(r.seq0, cur_a, fq_clamp(ch_i - 1, 0, L - 1));
-    const int ccl = fq_clamp(cc, 0, 3);
-    const int L2c = fm.L2[sel][ccl];
-    const int nk = L2c + fm_occ1(fm, sel, ck - 1, ccl) + 1;
-    const int nl = L2c + fm_occ1(fm, sel, cl, ccl);
-    const bool dead = cc > 3 || nk > nl;
-    ch_hit = !dead && ch_i - 1 == 0;
+    const int ccl = fq_clamp(base, 0, 3);
+    const int nk = fq_pick4(kk, ccl), nl = fq_pick4(ll, ccl);
+    const bool dead = base > 3 || nk > nl;
+    ch_hit = !dead && ci - 1 == 0;
     s.ch_on = !dead && !ch_hit;
     ch[0] = nk;
     ch[1] = nl;
-    ch[2] = ch_i - 1;
+    ch[2] = ci - 1;
     ch[3] = cur_a;
     if (start_chain) {
       ch[4] = n_mm;
@@ -308,12 +413,19 @@ FQ_HD void fq_lane_step(FqLane& s, const FmView& fm, const SearchParams& P,
     } else {
       if (eq_best) s.best_cnt += hl - hk + 1;
       bool dup = false;
-      if (hgo > 0)
-        for (int j = 0; j < s.n_aln; ++j)
-          if (alns[3 * j + 1] == hk && alns[3 * j + 2] == hl) {
-            dup = true;
-            break;
+      if (hgo > 0)  // four hit rows a round of loads
+        for (int j0 = 0; j0 < s.n_aln && !dup; j0 += 4) {
+          int hk4[4], hl4[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const bool in = j0 + u < s.n_aln;
+            hk4[u] = in ? alns[3 * (j0 + u) + 1] : -1;
+            hl4[u] = in ? alns[3 * (j0 + u) + 2] : -1;
           }
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            dup = dup || (hk4[u] == hk && hl4[u] == hl);
+        }
       if (!dup) {
         fq_gap_shadow(ha == 0 ? r.wid0 : r.wid1, hldp, hl - hk + 1, n, L);
         if (s.n_aln < FQ_A_MAX) {
@@ -331,89 +443,65 @@ FQ_HD void fq_lane_step(FqLane& s, const FmView& fm, const SearchParams& P,
 
   // ---- expansion (bwtgap.c:150-214) ----
   if (expand) {
-    const int i2 = i - 1;
+    FqExpand X;
+    X.a = a;
+    X.i2 = i - 1;
+    X.k = k;
+    X.l = l;
+    X.n_mm = n_mm;
+    X.n_gapo = n_gapo;
+    X.n_gape = n_gape;
+    X.ldp = ldp;
+    X.si = base;
+    const int i2 = X.i2;
     const int occ_w = l - k + 1;
     bool allow_diff = !(i2 > 0 && wb_i2m1 > m - 1);
     bool allow_m = !(i2 > 0 && wb_i2m1 == m - 1 && wb_i2 == m - 1 &&
                      ww_i2m1 == ww_i2);
     const int msd = P.max_seed_diff - (n_mm + n_gapo) - n_gape;
-    const int ii = i2 - (len - SL);
     if (r.use_seed && i2 > 0 && ii > 0) {
-      const int32_t* sw = a == 0 ? r.sw0 : r.sw1;
-      const int q1 = fq_clamp(ii - 1, 0, SL), q2 = fq_clamp(ii, 0, SL);
-      if (sw[2 * q1 + 1] > msd - 1) allow_diff = false;
-      if (sw[2 * q1 + 1] == msd - 1 && sw[2 * q2 + 1] == msd - 1 &&
-          sw[2 * q1] == sw[2 * q2])
+      if (sw1b > msd - 1) allow_diff = false;
+      if (sw1b == msd - 1 && sw2b == msd - 1 && sw1w == sw2w)
         allow_m = false;
     }
     const int tmp = n_gapo + n_gape;
     const bool indel_ok = allow_diff && i2 >= P.indel_end_skip + tmp &&
                           len - i2 >= P.indel_end_skip + tmp;
-    const bool ins_open =
-        indel_ok && state == FQ_STATE_M && n_gapo < P.max_gapo;
-    const bool ins_ext =
-        indel_ok && state == FQ_STATE_I && n_gape < P.max_gape;
-    const bool del_open = ins_open;
-    const bool del_ext = indel_ok && state == FQ_STATE_D &&
-                         n_gape < P.max_gape &&
-                         (n_gapo + n_gape < s.max_diff ||
-                          occ_w < P.max_del_occ);
-    const bool allow_mm = allow_diff && allow_m;
-
-    const int sel = 1 - a;
-    int cnt_k[4], cnt_l[4];
-    fm_occ4(fm, sel, k - 1, cnt_k);
-    fm_occ4(fm, sel, l, cnt_l);
-    const int si = fq_seq_at(r.seq0, a, fq_clamp(i2, 0, L - 1));
-
-    FqChildren cs;
-    cs.n = 0;
-    cs.bad_score = false;
-    if (ins_open || ins_ext)
-      fq_child(cs, P, a, i2, k, l, n_mm, n_gapo + ins_open,
-               n_gape + ins_ext, FQ_STATE_I, i2);
-    if (del_open || del_ext)
-      for (int c = 0; c < 4; ++c) {
-        const int kj = fm.L2[sel][c] + cnt_k[c] + 1;
-        const int lj = fm.L2[sel][c] + cnt_l[c];
-        if (kj <= lj)
-          fq_child(cs, P, a, i2 + 1, kj, lj, n_mm, n_gapo + del_open,
-                   n_gape + del_ext, FQ_STATE_D, i2 + 1);
-      }
-    for (int j = 1; j <= 4; ++j) {
-      bool mask_j = allow_mm, is_mm = true;
-      if (j == 4) {  // the read's own base: exact unless it is an N
-        mask_j = allow_mm || si < 4;
-        is_mm = allow_mm && si > 3;
-      }
-      if (!mask_j) continue;
-      const int c = (si + j) & 3;
-      const int kj = fm.L2[sel][c] + cnt_k[c] + 1;
-      const int lj = fm.L2[sel][c] + cnt_l[c];
-      if (kj <= lj)
-        fq_child(cs, P, a, i2, kj, lj, n_mm + (is_mm ? 1 : 0), n_gapo,
-                 n_gape, FQ_STATE_M, is_mm ? i2 : ldp);
+    X.ins_open = indel_ok && state == FQ_STATE_M && n_gapo < P.max_gapo;
+    X.ins_ext = indel_ok && state == FQ_STATE_I && n_gape < P.max_gape;
+    X.del_open = X.ins_open;
+    X.del_ext = indel_ok && state == FQ_STATE_D && n_gape < P.max_gape &&
+                (n_gapo + n_gape < s.max_diff || occ_w < P.max_del_occ);
+    X.allow_mm = allow_diff && allow_m;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      X.kk[c] = kk[c];
+      X.ll[c] = ll[c];
     }
-    const bool no_room = cs.n > NP - s.n_entries;
-    if (cs.bad_score || no_room) {
-      if (cs.bad_score) s.overflow |= FQ_FB_SCORE;
+    // count the children and check their buckets before any push
+    int bk[4];
+    uint32_t kids = fq_children(X, P, bk);
+    const bool bad_score = ((kids & 0x1u) && bk[0] >= FQ_NBUCK) ||
+                           ((kids & 0x1Eu) && bk[1] >= FQ_NBUCK) ||
+                           ((kids & 0xE0u) && bk[2] >= FQ_NBUCK) ||
+                           ((kids & 0x100u) && bk[3] >= FQ_NBUCK);
+    const int n_ch = fq_popc(kids);
+    const bool no_room = n_ch > NP - s.n_entries;
+    if (bad_score || no_room) {
+      if (bad_score) s.overflow |= FQ_FB_SCORE;
       if (no_room) s.overflow |= FQ_FB_POOL;
       done = true;
     } else {
-      for (int c = 0; c < cs.n; ++c) {  // LIFO push, C order
-        const int slot = s.ftop > 0 ? w.freel[--s.ftop] : s.bump++;
-        const int b = cs.score[c];
-        const uint32_t word = fq_bm_word(s, b >> 5);
-        const bool nonempty = (word >> (b & 31)) & 1u;
-        FqSlot e = cs.c[c];
-        e.ai |= (nonempty ? (int)heads[b] : NP) << 16;
-        pool[slot] = e;
-        heads[b] = (int16_t)slot;
-        fq_bm_put(s, b >> 5, word | (1u << (b & 31)));
+      while (kids) {  // LIFO pushes in C order
+        const int c = fq_ctz(kids);
+        kids &= kids - 1;
+        const int b = fq_pick4(bk, fq_kind(c));
+        fq_push(s, w, NP, fq_child(X, c), b, &x);
       }
-      s.n_entries += cs.n;
+      s.hwm = fq_max(s.hwm, s.n_entries);
     }
   }
+  if (x >= 0) w.freel[s.top++] = (uint16_t)x;
 
   if (done) {
     s.done = 1;
@@ -431,55 +519,67 @@ FQ_HD bool fq_lane_steps(FqLane& s, const FmView& fm, const SearchParams& P,
   return s.done != 0;
 }
 
-// The whole search of one read (the resident kernel's body).
-FQ_HD SearchOut search_read(const FmView& fm, const SearchParams& P,
-                            const uint8_t* seq0, int len, int md,
-                            int use_seed, int n_n, int32_t* wid0,
-                            int32_t* wid1, const int32_t* sw0,
-                            const int32_t* sw1, FqSlot* pool,
-                            uint16_t* freel, int16_t* heads, int32_t* alns) {
-  const FqRead r = {seq0, len, md, use_seed, wid0, wid1, sw0, sw1};
-  const FqWork w = {pool, freel, heads, alns};
-  FqLane s;
-  fq_lane_init(s, P, fm.n, r, n_n, w);
-  while (!s.done) fq_lane_step(s, fm, P, r, w);
-  const SearchOut out = {s.n_aln, s.overflow, s.steps};
-  return out;
+// One chunk's read inputs (the layouts of fq_search_launch): seqs (N, L)
+// reversed codes; lens, md, use_seed, n_n (N,); widths (2N, L+1, 2),
+// strand-0 rows first, updated in place by gap_shadow; seed_w (2N, SL+1,
+// 2).
+struct FqChunk {
+  const uint8_t* seqs;
+  const int32_t *lens, *md, *use_seed, *n_n;
+  int N;
+  int32_t* widths;
+  const int32_t* seed_w;
+};
+
+// The read inputs of chunk row `rid`.
+FQ_HD FqRead fq_chunk_read(const SearchParams& P, const FqChunk& c, int rid) {
+  const int64_t LW = 2 * (P.L + 1), SW = 2 * (P.SL + 1);
+  const FqRead r = {c.seqs + (int64_t)rid * P.L, c.lens[rid], c.md[rid],
+                    c.use_seed[rid], c.widths + rid * LW,
+                    c.widths + (c.N + rid) * LW, c.seed_w + rid * SW,
+                    c.seed_w + (c.N + rid) * SW};
+  return r;
 }
 
-// The read inputs of chunk row `rid` (the layouts of fq_search_launch).
-FQ_HD FqRead fq_chunk_read(const SearchParams& P, int rid, int N,
-                           const uint8_t* seqs, const int32_t* lens,
-                           const int32_t* md, const int32_t* use_seed,
-                           int32_t* widths, const int32_t* seed_w) {
-  const int64_t LW = 2 * (P.L + 1), SW = 2 * (P.SL + 1);
-  const FqRead r = {seqs + (int64_t)rid * P.L, lens[rid], md[rid],
-                    use_seed[rid], widths + rid * LW,
-                    widths + (N + rid) * LW, seed_w + rid * SW,
-                    seed_w + (N + rid) * SW};
-  return r;
+// Per-read outputs of the resident search, (N,) each but alns (N, 48, 3)
+// (zeroed by the caller); hwm: the most pool slots the read held at once.
+struct FqOut {
+  int32_t *alns, *n_aln, *fb, *steps, *hwm;
+};
+
+// The whole search of chunk read `rid` in workspace w (the resident
+// kernel's body; the read's hit rows are its rows of o.alns).
+FQ_HD void fq_resident_read(const FmView& fm, const SearchParams& P,
+                            const FqChunk& c, int rid, FqWork w,
+                            const FqOut& o) {
+  const FqRead r = fq_chunk_read(P, c, rid);
+  w.alns = o.alns + (int64_t)rid * FQ_A_MAX * 3;
+  FqLane s;
+  fq_lane_init(s, P, fm.n, r, c.n_n[rid], w);
+  while (!s.done) fq_lane_step(s, fm, P, r, w);
+  o.n_aln[rid] = s.n_aln;
+  o.fb[rid] = s.overflow;
+  o.steps[rid] = s.steps;
+  o.hwm[rid] = s.hwm;
 }
 
 // The scan kernel's body for lane b: start the lane's read if the outer
 // round marked it fresh, then advance it by at most k_inner steps.  An
 // idle or finished lane is left untouched.  The read's inputs are the
 // chunk's rows `rid`, so gap_shadow updates the chunk's width rows in
-// place (a read lives in exactly one lane).  Workspace slabs are per lane.
+// place (a read lives in exactly one lane).  A lane's whole workspace is
+// its own slab in global memory.
 FQ_HD void fq_scan_lane(int b, const FmView& fm, const SearchParams& P,
-                        const uint8_t* seqs, const int32_t* lens,
-                        const int32_t* md, const int32_t* use_seed,
-                        const int32_t* n_n, int N, int32_t* widths,
-                        const int32_t* seed_w, FqLane* lanes, FqSlot* pool,
+                        const FqChunk& c, FqLane* lanes, FqSlot* pool,
                         uint16_t* freel, int16_t* heads, int32_t* alns,
                         int k_inner) {
   FqLane s = lanes[b];
   if (s.rid < 0 || s.done) return;
-  const FqRead r = fq_chunk_read(P, s.rid, N, seqs, lens, md, use_seed,
-                                 widths, seed_w);
+  const FqRead r = fq_chunk_read(P, c, s.rid);
   const FqWork w = {pool + (int64_t)b * P.NP, freel + (int64_t)b * P.NP,
                     heads + (int64_t)b * FQ_NBUCK,
-                    alns + (int64_t)b * FQ_A_MAX * 3};
-  if (s.fresh) fq_lane_init(s, P, fm.n, r, n_n[s.rid], w);
+                    alns + (int64_t)b * FQ_A_MAX * 3, 1};
+  if (s.fresh) fq_lane_init(s, P, fm.n, r, c.n_n[s.rid], w);
   fq_lane_steps(s, fm, P, r, w, k_inner);
   lanes[b] = s;
 }

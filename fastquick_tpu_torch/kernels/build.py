@@ -134,7 +134,7 @@ def cuda_library() -> ctypes.CDLL:
             lib.fq_scan_launch.argtypes = ([_P] * 8 + [_I] + [_P] * 3 + [_I]
                                            + [_P] * 4 + [_I, _P])
             lib.fq_sw_launch.restype = _I
-            lib.fq_sw_launch.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P]
+            lib.fq_sw_launch.argtypes = [_P] * 4 + [_I] * 3 + [_P] * 2
             _cuda_lib = lib
         return _cuda_lib
 
@@ -153,12 +153,12 @@ def host_library() -> ctypes.CDLL:
             lib.fq_width_host.restype = _I
             lib.fq_width_host.argtypes = [_P, _P, _P, _P, _I, _I, _P, _P]
             lib.fq_search_host.restype = _I
-            lib.fq_search_host.argtypes = ([_P] * 8 + [_I] + [_P] * 6)
+            lib.fq_search_host.argtypes = ([_P] * 8 + [_I] + [_P] * 8)
             lib.fq_scan_host.restype = _I
             lib.fq_scan_host.argtypes = ([_P] * 8 + [_I] + [_P] * 3 + [_I]
                                          + [_P] * 4 + [_I])
             lib.fq_sw_host.restype = _I
-            lib.fq_sw_host.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P]
+            lib.fq_sw_host.argtypes = [_P] * 4 + [_I] * 3 + [_P]
             _host_lib = lib
         return _host_lib
 

@@ -126,34 +126,41 @@ def _check_chunk(P: SearchParams, N: int, widths: torch.Tensor,
 def resident_search(fm: DeviceFM, P: SearchParams, seqs0: torch.Tensor,
                     lens: torch.Tensor, md: torch.Tensor,
                     use_seed: torch.Tensor, n_n: torch.Tensor,
-                    widths: torch.Tensor, seed_w: torch.Tensor):
+                    widths: torch.Tensor, seed_w: torch.Tensor,
+                    hwm: torch.Tensor | None = None):
     """Inexact search of a chunk of N reads.
 
     seqs0: (N, L) reversed read codes (strand 0; strand 1 is their
     complement); lens/md/use_seed/n_n: (N,) (md < 0 marks padding rows);
     widths: (2N, L+1, 2) finalized width rows (strand-0 rows first) --
     scratch: the CUDA kernel applies gap_shadow to it in place; seed_w:
-    (2N, SL+1, 2).
+    (2N, SL+1, 2).  hwm: an optional (N,) int32 tensor that receives each
+    read's pool high-water mark (the most slots it held at once; 0 for a
+    dead read).
 
     Returns (n_aln, alns (N, A_MAX, 3) [mm|go<<6|ge<<12|a<<18|score<<19,
     k, l], fb, steps), all int32, raw per read (n_aln is not zeroed for
     fallback reads)."""
     if seqs0.device.type == "cpu":
         return search_plain(fm, P, seqs0, lens, md, use_seed, n_n, widths,
-                            seed_w)
+                            seed_w, hwm=hwm)
     build.require_cuda(seqs0, lens, md, use_seed, n_n, widths, seed_w,
                        fm.words)
     N = seqs0.shape[0]
     dev = seqs0.device
     i32 = torch.int32
     _check_chunk(P, N, widths, seed_w)
+    if hwm is None:
+        hwm = torch.empty(N, dtype=i32, device=dev)
+    elif (hwm.shape != (N,) or hwm.dtype != i32 or not hwm.is_cuda
+          or not hwm.is_contiguous()):
+        raise ValueError("hwm must be a contiguous (N,) int32 CUDA tensor")
     seqs8 = seqs0.to(torch.uint8).contiguous()
     lens32, md32 = lens.to(i32).contiguous(), md.to(i32).contiguous()
     us32, nn32 = use_seed.to(i32).contiguous(), n_n.to(i32).contiguous()
     seed32 = seed_w.to(i32).contiguous()
     pool = torch.empty((N, P.NP, 4), dtype=i32, device=dev)
     freel = torch.empty((N, P.NP), dtype=torch.int16, device=dev)
-    heads = torch.empty((N, NBUCK), dtype=torch.int16, device=dev)
     alns = torch.zeros((N, A_MAX, 3), dtype=i32, device=dev)
     n_aln = torch.empty(N, dtype=i32, device=dev)
     fb = torch.empty(N, dtype=i32, device=dev)
@@ -167,7 +174,7 @@ def resident_search(fm: DeviceFM, P: SearchParams, seqs0: torch.Tensor,
         p(fm.kernel_table()), hp.ctypes.data_as(ctypes.c_void_p),
         sp.ctypes.data_as(ctypes.c_void_p), p(seqs8), p(lens32), p(md32),
         p(us32), p(nn32), N, p(widths), p(seed32), p(pool), p(freel),
-        p(heads), p(alns), p(n_aln), p(fb), p(steps), ctypes.c_void_p(stream))
+        p(alns), p(n_aln), p(fb), p(steps), p(hwm), ctypes.c_void_p(stream))
     build.check(rc, "search")
     build.launch_counts["search"] += 1
     return n_aln, alns, fb, steps
@@ -194,7 +201,7 @@ class PlainLanes:
 
     PER_LANE = ("rid", "done", "ch_on", "use_s", "lns", "md0", "max_diff",
                 "n_entries", "free_top", "best_score", "best_cnt", "n_aln",
-                "overflow", "steps", "ch", "pk", "pl", "pai", "pdiff",
+                "overflow", "steps", "hwm", "ch", "pk", "pl", "pai", "pdiff",
                 "heads", "freel", "al", "wid", "sw", "seq")
 
     def __init__(self, fm: DeviceFM, P: SearchParams, B: int, seqs0, lens,
@@ -225,7 +232,8 @@ class PlainLanes:
         self.ch_on = z(B, dtype=torch.bool)
         self.use_s = z(B, dtype=torch.bool)
         for name in ("lns", "md0", "max_diff", "n_entries", "free_top",
-                     "best_score", "best_cnt", "n_aln", "overflow", "steps"):
+                     "best_score", "best_cnt", "n_aln", "overflow", "steps",
+                     "hwm"):
             setattr(self, name, z(B))
         self.ch = z(B, 8)
         self.pk, self.pl, self.pai, self.pdiff = (z(B, NP + 1)
@@ -278,6 +286,7 @@ class PlainLanes:
         self.freel[li, :NP] = self.iota_np
         self.free_top[li] = NP - 2
         self.n_entries[li] = torch.where(dead, 0, 2)
+        self.hwm[li] = self.n_entries[li]
         self.best_score[li] = ((m0 + 1) * P.s_mm
                                + (P.max_gapo + 1) * P.s_gapo
                                + (P.max_gape + 1) * P.s_gape)
@@ -506,6 +515,7 @@ class PlainLanes:
             1, (free_top[:, None] - rank).clamp(0, NP - 1))
         self.free_top = free_top - total
         self.n_entries = n_entries + total
+        self.hwm = torch.maximum(self.hwm, self.n_entries)
         # LIFO pushes in C order: each child links to its bucket's head
         for c in range(len(cv)):
             v = valid[:, c]
@@ -529,7 +539,7 @@ class PlainLanes:
 
 
 def search_plain(fm: DeviceFM, P: SearchParams, seqs0, lens, md, use_seed,
-                 n_n, widths, seed_w, lanes: int = 8192):
+                 n_n, widths, seed_w, lanes: int = 8192, hwm=None):
     """Plain version of the search kernel: all lanes advance one step in
     lockstep; every _INNER steps finished lanes are flushed and refilled
     with the next reads, and once no reads are left the lane set shrinks to
@@ -542,6 +552,7 @@ def search_plain(fm: DeviceFM, P: SearchParams, seqs0, lens, md, use_seed,
     out_al = torch.zeros((N, A_MAX, 3), dtype=lng, device=dev)
     out_fb = torch.zeros(N, dtype=lng, device=dev)
     out_steps = torch.zeros(N, dtype=lng, device=dev)
+    out_hwm = torch.zeros(N, dtype=lng, device=dev)
     s = PlainLanes(fm, P, max(1, min(lanes, N)), seqs0, lens, md, use_seed,
                    n_n, widths, seed_w)
 
@@ -555,6 +566,7 @@ def search_plain(fm: DeviceFM, P: SearchParams, seqs0, lens, md, use_seed,
             out_al[r] = s.al[fl, :A_MAX]
             out_fb[r] = s.overflow[fl]
             out_steps[r] = s.steps[fl]
+            out_hwm[r] = s.hwm[fl]
             s.rid[fl] = -1
         if next_read < N:
             free_lanes = s.done.nonzero().squeeze(1)[: N - next_read]
@@ -572,6 +584,8 @@ def search_plain(fm: DeviceFM, P: SearchParams, seqs0, lens, md, use_seed,
         for _ in range(_INNER):
             s.step()
     i32 = torch.int32
+    if hwm is not None:
+        hwm.copy_(out_hwm)
     return (out_n.to(i32), out_al.to(i32), out_fb.to(i32),
             out_steps.to(i32))
 

@@ -94,20 +94,18 @@ def sw_forward_batch(refs: torch.Tensor, queries: torch.Tensor,
     if refs.device.type == "cpu":
         return sw_forward_plain(refs, queries, rlens, qlens)
     build.require_cuda(refs, queries, rlens, qlens)
-    B = refs.shape[0]
+    (B, RL), QL = refs.shape, queries.shape[1]
     dev = refs.device
-    refs_t = refs.to(torch.uint8).t().contiguous()  # (RL, B) interleaved
-    qs_t = queries.to(torch.uint8).t().contiguous()
+    refs8 = refs.to(torch.uint8).contiguous()
+    qs8 = queries.to(torch.uint8).contiguous()
     rl32 = rlens.to(torch.int32).contiguous()
     ql32 = qlens.to(torch.int32).contiguous()
-    h_t = torch.empty(refs_t.shape, dtype=torch.int32, device=dev)
-    e_t = torch.empty_like(h_t)
     out = torch.empty((B, 4), dtype=torch.int32, device=dev)
     lib = build.cuda_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = build.ptr
-    rc = lib.fq_sw_launch(p(refs_t), p(qs_t), p(rl32), p(ql32), B, p(h_t),
-                          p(e_t), p(out), ctypes.c_void_p(stream))
+    rc = lib.fq_sw_launch(p(refs8), p(qs8), p(rl32), p(ql32), B, RL, QL,
+                          p(out), ctypes.c_void_p(stream))
     build.check(rc, "sw")
     build.launch_counts["sw"] += 1
     return out

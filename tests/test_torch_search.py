@@ -2,7 +2,8 @@
 fastquick_tpu's XLA search and HostEngine; hit compaction against
 _compact_hits; lane independence of the plain search; and the search
 kernel's per-read body, built for the host with g++, against the plain
-version.  Every comparison is exact."""
+version, in read order and in a shuffled one.  Every comparison is
+exact."""
 
 import ctypes
 import dataclasses
@@ -139,34 +140,71 @@ def test_lane_independence():
     assert int((ref[2] != 0).sum()) > 0, "world should exercise fallbacks"
 
 
-@pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
-@pytest.mark.parametrize("pool,step_cap", [(512, 768), (1024, 1536)])
-def test_search_body_host_build_matches_plain(pool, step_cap):
+def _host_search(fm, P, inp, order):
+    """The g++ build of the resident kernel's body (fq_search_host): reads
+    taken in `order` on a few reused workspaces.  Returns (n_aln, alns, fb,
+    steps, hwm)."""
     from fastquick_tpu_torch.kernels.build import host_library
 
-    idx = make_idx(seed=2)
-    reads = port_reads(synth_reads(idx, 120, 12))
-    fm, P, inp = _chunk(idx, reads, pool)
-    P = dataclasses.replace(P, step_cap=step_cap)
-    want = search_plain(fm, P, **inp)
     N = inp["seqs0"].shape[0]
     i32 = torch.int32
-    out = [torch.zeros((N, 48, 3), dtype=i32)] + [
-        torch.zeros(N, dtype=i32) for _ in range(3)]
+    alns = torch.zeros((N, 48, 3), dtype=i32)
+    n_aln, fb, steps, hwm = (torch.zeros(N, dtype=i32) for _ in range(4))
     wid = inp["widths"].clone()
     args = [inp["seqs0"].to(torch.uint8)] + [
         inp[k].to(i32).contiguous()
         for k in ("lens", "md", "use_seed", "n_n")]
+    order = torch.as_tensor(order, dtype=i32)
     sp = P.to_array()
 
     def p(t):
         return ctypes.c_void_p(t.data_ptr())
 
-    host_library().fq_search_host(
+    assert host_library().fq_search_host(
         p(fm.kernel_table()), fm.host_params().ctypes.data_as(
             ctypes.c_void_p), sp.ctypes.data_as(ctypes.c_void_p),
         *[p(a) for a in args], N, p(wid), p(inp["seed_w"].contiguous()),
-        p(out[0]), p(out[1]), p(out[2]), p(out[3]))
-    n_aln, alns, fb, steps = want
-    assert torch.equal(out[1], n_aln) and torch.equal(out[0], alns)
-    assert torch.equal(out[2], fb) and torch.equal(out[3], steps)
+        p(order), p(alns), p(n_aln), p(fb), p(steps), p(hwm)) == 0
+    return n_aln, alns, fb, steps, hwm
+
+
+def _plain_with_hwm(fm, P, inp):
+    hwm = torch.zeros(inp["seqs0"].shape[0], dtype=torch.int32)
+    return (*search_plain(fm, P, **inp, hwm=hwm), hwm)
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
+@pytest.mark.parametrize("seed", [2, 6])
+@pytest.mark.parametrize("pool,step_cap", [(512, 768), (1024, 1536)])
+def test_search_body_host_build_matches_plain(pool, step_cap, seed):
+    """The resident kernel's body against the plain version, pool
+    high-water marks included, at both pool/cap pairs and on two
+    worlds."""
+    idx = make_idx(seed=seed)
+    reads = port_reads(synth_reads(idx, 120, seed + 10))
+    fm, P, inp = _chunk(idx, reads, pool)
+    P = dataclasses.replace(P, step_cap=step_cap)
+    want = _plain_with_hwm(fm, P, inp)
+    got = _host_search(fm, P, inp, np.arange(inp["seqs0"].shape[0]))
+    for name, a, b in zip(("n_aln", "alns", "fb", "steps", "hwm"), got,
+                          want):
+        assert torch.equal(a, b), name
+    assert int(want[4].max()) > 64, "some read should hold many slots"
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
+def test_search_body_host_build_any_pull_order():
+    """A read's result must not depend on the order reads are taken or on
+    its workspace's history: a shuffled order, on reused workspaces, must
+    give every read the same result."""
+    idx = make_idx(seed=3)
+    reads = port_reads(synth_reads(idx, 150, 33))
+    fm, P, inp = _chunk(idx, reads, pool=256)
+    P = dataclasses.replace(P, step_cap=400)  # exercise the fallbacks too
+    want = _plain_with_hwm(fm, P, inp)
+    order = np.random.default_rng(5).permutation(inp["seqs0"].shape[0])
+    got = _host_search(fm, P, inp, order)
+    for name, a, b in zip(("n_aln", "alns", "fb", "steps", "hwm"), got,
+                          want):
+        assert torch.equal(a, b), name
+    assert int((want[2] != 0).sum()) > 0, "world should exercise fallbacks"

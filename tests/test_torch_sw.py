@@ -1,8 +1,9 @@
 """The port's Smith-Waterman forward pass (plain PyTorch on the CPU)
 against fastquick_tpu's numpy spec and the Pallas SW kernel (interpret
 mode); the port's mate-rescue glue against align/dp.local_align; the SW
-kernel's per-job body, built for the host with g++, against the plain
-version; and the device-mode default of the mate-rescue route.  Every
+kernel's wavefront, built for the host with g++, against the plain
+version; an edge batch against the spec; and the device-mode default of
+the mate-rescue route.  Every
 comparison is exact."""
 
 import ctypes
@@ -99,28 +100,56 @@ def test_sw_local_batch_device_matches_local_align():
         assert g_coords == coords, f"job {i}: {g_coords} vs {coords}"
 
 
-@pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
-def test_sw_body_host_build_matches_plain():
+def _host_forward(refs, queries, rlens, qlens) -> torch.Tensor:
+    """The g++ build of the SW kernel's wavefront (fq_sw_host)."""
     from fastquick_tpu_torch.kernels.build import host_library
 
-    refs, queries, rlens, qlens = _cases(5, 24)
-    B = len(refs)
-    want = sw_forward_plain(*[torch.from_numpy(a) for a in
-                              (refs, queries, rlens, qlens)])
-    refs_t = torch.from_numpy(refs.astype(np.uint8).T.copy())
-    qs_t = torch.from_numpy(queries.astype(np.uint8).T.copy())
-    rl = torch.from_numpy(rlens)
-    ql = torch.from_numpy(qlens)
-    h = torch.zeros((RL, B), dtype=torch.int32)
-    e = torch.zeros_like(h)
+    B, RL = refs.shape
+    QL = queries.shape[1]
+    args = [torch.from_numpy(np.ascontiguousarray(a, dtype=d)) for a, d in
+            ((refs, np.uint8), (queries, np.uint8), (rlens, np.int32),
+             (qlens, np.int32))]
     out = torch.zeros((B, 4), dtype=torch.int32)
 
     def p(t):
         return ctypes.c_void_p(t.data_ptr())
 
-    host_library().fq_sw_host(p(refs_t), p(qs_t), p(rl), p(ql), B, p(h),
-                              p(e), p(out))
-    assert torch.equal(out, want)
+    assert host_library().fq_sw_host(*[p(a) for a in args], B, RL, QL,
+                                     p(out)) == 0
+    return out
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sw_body_host_build_matches_plain(seed):
+    """The kernel's order of evaluation (strips, wavefront steps, lanes,
+    column buffer, warp reduction), emulated by its g++ build."""
+    refs, queries, rlens, qlens = _cases(seed, 24)
+    want = sw_forward_plain(*[torch.from_numpy(a) for a in
+                              (refs, queries, rlens, qlens)])
+    assert torch.equal(_host_forward(refs, queries, rlens, qlens), want)
+
+
+@pytest.mark.parametrize("impl", ["plain", "host_build"])
+def test_sw_edge_batch(impl):
+    """Query lengths around the strip of 32, empty and one-base refs,
+    all-N sequences and best scores reached in several cells, against the
+    reference's numpy spec."""
+    from fastquick_tpu_torch.testing.sw_cases import sw_edge_batch
+
+    if impl == "host_build" and shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    refs, queries, rlens, qlens = sw_edge_batch(0)
+    if impl == "plain":
+        out = _port_forward(refs, queries, rlens, qlens)
+    else:
+        out = _host_forward(refs, queries, rlens, qlens).numpy()
+    for b in range(len(refs)):
+        want = sw_forward_reference(refs[b, :rlens[b]].astype(np.int32),
+                                    queries[b, :qlens[b]].astype(np.int32))
+        got = (int(out[b, 0]), int(out[b, 1]), int(out[b, 2]))
+        assert got == want, f"job {b} (rl {rlens[b]}, ql {qlens[b]})"
+        assert out[b, 3] == 0
 
 
 def test_device_sw_default_on_in_device_mode(monkeypatch):
