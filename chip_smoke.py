@@ -11,15 +11,18 @@ Phases (any failure raises and the script exits non-zero):
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
    exact integer equality, at the main path's shapes, over an FM index of
    a seeded random 6.5 Mbp text (the production panel's size): width on
-   65,536 units of 160 codes, search on 4,096 reads of 150 bp, SW on 2,048
-   jobs of 640 x 128 and on an edge batch (testing/sw_cases.py); kernel and
-   plain times by CUDA events; the search kernel is also timed alone on one
-   full chunk of 32,768 reads, with the pools' high-water marks (p50, p99,
-   max) of both cells and the time of one step of the longest read.  The
-   scan path (``FQ_BS_PALLAS=2``: 1,024 lanes x 32 steps, pool 512, step
-   cap 768) runs the same 4,096 reads through its outer round, with the
-   scan kernel and with its plain version, and both must equal the
-   resident kernel at that pool and cap read for read;
+   65,536 units of 160 codes and on edge batches (testing/width_cases.py,
+   L 1 to 160 with the seed launches' 32), search on 4,096 reads of 150
+   bp, SW on 2,048 jobs of 640 x 128 and on an edge batch (testing/
+   sw_cases.py); kernel and plain times by CUDA events; the search kernel
+   is also timed alone on one full chunk of 32,768 reads, with the pools'
+   high-water marks (p50, p99, max) of both cells and the time of one step
+   of the longest read.  The scan path (``FQ_BS_PALLAS=2``: 1,024 lanes x
+   32 steps, pool 512, step cap 768) runs the same 4,096 reads as one
+   launch of the scan kernel and as its plain version, which must agree in
+   hits, fallbacks, steps, rounds and busy steps, and both must equal the
+   resident kernel at that pool and cap read for read; the kernel's launch
+   and the whole chunk are timed;
 3. small world: the port's ``index`` + ``align --device_qc`` on
    testing/synthworld.build_synth_pe_world, byte-identical on all 12
    product files to the port's ``align --engine host``, once with the
@@ -30,10 +33,11 @@ Phases (any failure raises and the script exits non-zero):
    times, reads a second, fallback share (fails above a quarter); then
    the same device run with ``FQ_BS_PALLAS=2`` (byte-identical, its share
    printed, not gated: pool 512 and cap 768 are the reference's settings
-   for that path).  The default run logs the shapes of its SW launches
-   (jobs, RL, QL, true cells), and the SW kernel is timed and checked at
-   those shapes after it.  The kernel launch counts are zeroed right
-   before each device run and read right after it.
+   for that path).  The default run logs the shapes of its width launches
+   (units x codes) and its SW launches (jobs, RL, QL, true cells), and
+   both kernels are checked and timed again at those shapes after it.  The
+   kernel launch counts are zeroed right before each device run and read
+   right after it.
 
 The last two lines of stdout are the kernels line and
 {"ok": true, "device": {...}}, printed only when phases 2-4 all ran
@@ -237,22 +241,20 @@ def phase_kernels(seed: int, dev: str = "cuda", text_len: int = 6_500_000,
     from fastquick_tpu_torch.align.opts import GapOpt
     from fastquick_tpu_torch.index.fmindex import FMIndex
     from fastquick_tpu_torch.kernels import build
-    from fastquick_tpu_torch.ops.batch_search import (
-        chunk_inputs,
-        pack_chunk,
-        scan_search,
-    )
-    from fastquick_tpu_torch.ops.fm import DeviceFM, cal_width_planes
+    from fastquick_tpu_torch.ops.batch_search import chunk_inputs, pack_chunk
+    from fastquick_tpu_torch.ops.fm import DeviceFM
     from fastquick_tpu_torch.ops.search_kernels import (
         PlainLanes,
-        ScanLanes,
-        inner_scan,
         resident_search,
-        scan_plain,
+        scan_chunk,
+        scan_search,
         search_plain,
-        width,
     )
     from fastquick_tpu_torch.testing.sw_cases import sw_edge_batch
+    from fastquick_tpu_torch.testing.width_cases import (
+        EDGE_LENS,
+        width_edge_batch,
+    )
 
     dev = torch.device(dev)
     rng = np.random.default_rng(seed)
@@ -273,20 +275,20 @@ def phase_kernels(seed: int, dev: str = "cuda", text_len: int = 6_500_000,
         units_np[m, :len(c)] = c[:L]
     units = torch.from_numpy(units_np).to(dev)
     sel = torch.from_numpy((np.arange(M) % 2).astype(np.int32)).to(dev)
-    w_k, b_k = width(fm, units, sel)
-    w_p, b_p = cal_width_planes(fm, sel, units)
-    torch.cuda.synchronize()
-    err = max(int((w_k - w_p).abs().max()), int((b_k - b_p).abs().max()))
-    if err:
-        raise AssertionError(f"width kernel != plain (max abs err {err})")
-    ms = cuda_ms(lambda: width(fm, units, sel), 5)
-    plain_ms = cuda_ms(lambda: cal_width_planes(fm, sel, units), 1)
+    err, ms, plain_ms = width_case(fm, units, sel, reps=5)
     bms, by = bound(M * L + 4 * M + 8 * M * L + tab_bytes,
                     M * L * OPS_WIDTH_STEP)
     res["width"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
                         bound_ms=bms, bound_by=by)
     log(f"width  M={M} L={L}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
         f"bound {bms:.3f} ms ({by}), equal")
+    for L_e in EDGE_LENS:
+        u, s_ = (torch.from_numpy(a).to(dev)
+                 for a in width_edge_batch(text, L_e, seed + L_e))
+        width_case(fm, u, s_, reps=0)
+    log(f"width  edge batches (L {'/'.join(map(str, EDGE_LENS))}, "
+        f"{u.shape[0]} units: all-N, random codes, text with and without "
+        f"errors, the primary row): equal")
 
     # ---- search: n_reads reads x 150 bp ----
     reads = [_Read(c) for c in _draw_reads(text, n_reads, 150, rng)]
@@ -338,13 +340,14 @@ def phase_kernels(seed: int, dev: str = "cuda", text_len: int = 6_500_000,
     Ps = pack_chunk(reads, opt, 512, kernel="scan")[2]
     assert (Ps.NP, Ps.step_cap) == (512, 768), Ps
 
-    def scan_run(w, advance=inner_scan, lanes_cls=ScanLanes):
-        return scan_search(fm, Ps, lanes_cls(fm, Ps, lanes, widths=w, **inp),
-                           inner, advance)
+    def scan_run(w):
+        return scan_chunk(fm, Ps, lanes, inner, widths=w, **inp)
 
     s_out = scan_run(widths0.clone())
     t0 = time.perf_counter()
-    p_out = scan_run(widths0.clone(), scan_plain, PlainLanes)
+    p_out = scan_search(fm, Ps, PlainLanes(fm, Ps, lanes,
+                                           widths=widths0.clone(), **inp),
+                        inner)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     r_out = resident_search(fm, Ps, widths=widths0.clone(), **inp)
@@ -354,31 +357,36 @@ def phase_kernels(seed: int, dev: str = "cuda", text_len: int = 6_500_000,
         for name, a, b in zip(("n_aln", "alns", "fb", "steps"), s_out, ref):
             if not torch.equal(a, b):
                 bad = (a != b).reshape(a.shape[0], -1).any(1).nonzero()[:5]
-                raise AssertionError(f"scan path != {what} in {name}, reads "
-                                     f"{bad.flatten().tolist()}")
-    rounds = s_out[4]
-    if p_out[4] != rounds:
-        raise AssertionError(f"scan kernel took {rounds} rounds, its plain "
-                             f"version {p_out[4]}")
+                raise AssertionError(f"scan kernel != {what} in {name}, "
+                                     f"reads {bad.flatten().tolist()}")
+    rounds, busy = s_out[4], int(s_out[5])
+    if (rounds, busy) != (p_out[4], int(p_out[5])):
+        raise AssertionError(f"scan kernel took {rounds} rounds and {busy} "
+                             f"busy steps, its plain version {p_out[4]} and "
+                             f"{int(p_out[5])}")
     steps = int(s_out[3].long().sum())
     n_fb = int((s_out[2][:len(reads)] != 0).sum())
     clones = [widths0.clone() for _ in range(4)]
     chunk_ms = cuda_ms(scan_run, 3, setup=lambda i: (clones[i + 1],))
-    kernel_ms = []
-    for i in range(3):
-        ev = []
+    # the kernel alone: CUDA events around its one launch of the chunk
+    lib = build.cuda_library()
+    launch = lib.fq_scan_launch
+    ev = []
 
-        def timed(fm_, P_, lanes_, k, ev=ev):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            inner_scan(fm_, P_, lanes_, k)
-            b.record()
-            ev.append((a, b))
+    def timed_launch(*args):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        rc = launch(*args)
+        b.record()
+        ev.append((a, b))
+        return rc
 
-        scan_run(widths0.clone(), timed)
-        torch.cuda.synchronize()
-        kernel_ms.append(sum(a.elapsed_time(b) for a, b in ev))
+    with mock.patch.object(lib, "fq_scan_launch", timed_launch):
+        for w in [widths0.clone() for _ in range(3)]:
+            scan_run(w)
+    torch.cuda.synchronize()
+    kernel_ms = [a.elapsed_time(b) for a, b in ev]
     ms = sum(kernel_ms) / len(kernel_ms)
     out_bytes = 12 * N + 12 * int(s_out[0].clamp(0, 48).long().sum())
     bms, by = bound(in_bytes + out_bytes, steps * OPS_SEARCH_STEP_MIN)
@@ -386,13 +394,14 @@ def phase_kernels(seed: int, dev: str = "cuda", text_len: int = 6_500_000,
                        bound_ms=bms, bound_by=by, steps=steps,
                        fallback=n_fb, reads=len(reads), rounds=rounds,
                        chunk_ms=chunk_ms, lanes=lanes, inner=inner,
-                       busy=int(s_out[5]))
+                       busy=busy, launch_ms=kernel_ms)
     log(f"scan   N={len(reads)} {lanes} lanes x {inner} steps, pool 512, "
-        f"cap 768: {rounds} rounds; kernel launches {ms:.3f} ms in all "
-        f"(runs {', '.join(f'{x:.3f}' for x in kernel_ms)}), whole chunk "
-        f"{chunk_ms:.3f} ms, plain path {plain_ms:.1f} ms, bound {bms:.5f} "
-        f"ms ({by}), {steps} steps, {n_fb} fallback reads; equal to its "
-        f"plain version and to the resident kernel at the same pool and cap")
+        f"cap 768: {rounds} rounds, {busy} busy steps in one launch; kernel "
+        f"{ms:.3f} ms (runs {', '.join(f'{x:.3f}' for x in kernel_ms)}), "
+        f"whole chunk {chunk_ms:.3f} ms, plain path {plain_ms:.1f} ms, bound "
+        f"{bms:.5f} ms ({by}), {steps} steps, {n_fb} fallback reads; equal "
+        f"to its plain version and to the resident kernel at the same pool "
+        f"and cap")
     del clones
 
     # the kernel alone at one full main-path chunk (BatchEngine.max_batch
@@ -448,6 +457,31 @@ def phase_kernels(seed: int, dev: str = "cuda", text_len: int = 6_500_000,
     return res
 
 
+def width_case(fm, units, sel, reps: int = 3):
+    """The width kernel against its plain version on one batch (raises if
+    they differ); returns (max abs err 0, kernel ms, plain ms), the times
+    by CUDA events over `reps` runs (none if 0)."""
+    import torch
+
+    from fastquick_tpu_torch.ops.fm import cal_width_planes
+    from fastquick_tpu_torch.ops.search_kernels import width
+
+    w_k, b_k = width(fm, units, sel)
+    w_p, b_p = cal_width_planes(fm, sel, units)
+    torch.cuda.synchronize()
+    err = max(int((w_k - w_p).abs().max()), int((b_k - b_p).abs().max()))
+    if err:
+        bad = ((w_k != w_p) | (b_k != b_p)).any(1).nonzero()[:5]
+        raise AssertionError(f"width kernel != plain at {tuple(units.shape)}"
+                             f" (max abs err {err}, units "
+                             f"{bad.flatten().tolist()})")
+    if not reps:
+        return err, None, None
+    ms = cuda_ms(lambda: width(fm, units, sel), reps)
+    plain_ms = cuda_ms(lambda: cal_width_planes(fm, sel, units), 1)
+    return err, ms, plain_ms
+
+
 def sw_case(args, reps: int = 3):
     """The SW kernel against its plain version on one batch (raises if
     they differ); returns (kernel output, max abs err 0, kernel ms, plain
@@ -492,24 +526,33 @@ def _align(argv: list[str], logf) -> dict:
 
 
 def _device_run(argv: list[str], logf, kernel: str,
-                sw_calls: list | None = None) -> tuple[dict, dict]:
+                calls: dict | None = None) -> tuple[dict, dict]:
     """One ``align --device_qc`` run with the launch counts zeroed just
-    before it; returns its stats and its launch counts.  If sw_calls is a
-    list, the inputs of each SW kernel launch are appended to it."""
+    before it; returns its stats and its launch counts.  If calls is a
+    dict, the inputs of each SW and width kernel launch are appended to
+    its lists "sw" and "width"."""
     from fastquick_tpu_torch.kernels import build
-    from fastquick_tpu_torch.ops import sw_kernels
+    from fastquick_tpu_torch.ops import batch_search, sw_kernels
 
     launch_sw = sw_kernels.sw_forward_batch
+    launch_width = batch_search.width
 
     def record_sw(*args):
-        sw_calls.append([t.clone() for t in args])
+        calls["sw"].append([t.clone() for t in args])
         return launch_sw(*args)
 
+    def record_width(fm, units, sel):
+        calls["width"].append((fm, units.clone(), sel.clone()))
+        return launch_width(fm, units, sel)
+
     build.reset_launch_counts()
+    rec = calls is not None
     with mock.patch.dict(os.environ,
                          {"FQ_BS_PALLAS": "2"} if kernel == "scan" else {}), \
             mock.patch.object(sw_kernels, "sw_forward_batch",
-                              launch_sw if sw_calls is None else record_sw):
+                              record_sw if rec else launch_sw), \
+            mock.patch.object(batch_search, "width",
+                              record_width if rec else launch_width):
         st = _align(argv + ["--device_qc"], logf)
     launches = dict(build.launch_counts)
     # the resident kernel counts its launches as "search"
@@ -579,9 +622,9 @@ def phase_production(work: Path, logf, seed: int, pairs: int,
         f"{t_world:.1f}s")
     common = ["--fastq_1", w["fq1"], "--fastq_2", w["fq2"],
               "--index_prefix", w["idx_prefix"]]
-    sw_calls: list = []
+    calls: dict = {"sw": [], "width": []}
     dev, launches = _device_run(common + ["--out_prefix", str(d / "dev")],
-                                logf, "resident", sw_calls)
+                                logf, "resident", calls)
     nat = _align(common + ["--out_prefix", str(d / "nat"),
                            "--engine", "native"], logf)
     _same_outputs(str(d / "nat"), str(d / "dev"))
@@ -601,8 +644,15 @@ def phase_production(work: Path, logf, seed: int, pairs: int,
         f"{launches}")
     if share > 0.25:
         raise AssertionError(f"fallback share {share:.3f} above 0.25")
+    width_shapes = []
+    for fm, units, sel in calls["width"]:  # reads, then seeds, per chunk
+        M, L = units.shape
+        _, ms, plain_ms = width_case(fm, units, sel)
+        width_shapes.append(dict(M=M, L=L, ms=ms, plain_ms=plain_ms))
+        log(f"production width launch: {M} units x {L} codes; kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.1f} ms, equal")
     sw_shapes = []
-    for i, args in enumerate(sw_calls):  # forward, reverse per rescue batch
+    for i, args in enumerate(calls["sw"]):  # forward, reverse per rescue
         (B, RL), QL = args[0].shape, args[1].shape[1]
         cells = int((args[2].long() * args[3].long()).sum())
         _, _, ms, plain_ms = sw_case(args)
@@ -613,7 +663,7 @@ def phase_production(work: Path, logf, seed: int, pairs: int,
         log(f"production SW {sw_shapes[-1]['launch']} launch: {B} jobs, RL "
             f"{RL}, QL {QL}, {cells} true cells ({share:.1%} of the "
             f"padded); kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, equal")
-    del sw_calls
+    del calls
 
     scan, scan_launches = _device_run(
         common + ["--out_prefix", str(d / "scan")], logf, "scan")
@@ -622,8 +672,10 @@ def phase_production(work: Path, logf, seed: int, pairs: int,
     scan_rps = w["n_reads"] / scan["wall_s"]
     log(f"production, scan kernel: device_qc {scan['wall_s']:.1f}s "
         f"({scan_rps:.0f} reads/s); 12 product files byte-identical to "
-        f"native; {scan['rounds']} rounds, {scan['busy']} busy steps; "
-        f"launches {scan_launches}")
+        f"native; {scan['rounds']} rounds, {scan['busy']} busy steps, search "
+        f"phase {scan['stage_t'].get('search', 0.0):.3f}s (default run "
+        f"{dev['stage_t'].get('search', 0.0):.3f}s); launches "
+        f"{scan_launches}")
     log("production scan-kernel phases: " + ", ".join(
         f"{k} {v:.2f}s" for k, v in sorted(scan["stage_t"].items(),
                                            key=lambda kv: -kv[1])))
@@ -634,6 +686,7 @@ def phase_production(work: Path, logf, seed: int, pairs: int,
                 reads_per_s=rps, native_reads_per_s=w["n_reads"]
                 / nat["wall_s"], fallback_share=share, launches=launches,
                 world_s=t_world, sw_launches=sw_shapes,
+                width_launches=width_shapes,
                 scan=dict(device=scan, launches=scan_launches,
                           reads_per_s=scan_rps, fallback_share=scan_share))
 

@@ -2,9 +2,10 @@
 // and the FM-index rank query over DeviceFM.kernel_table().
 //
 // Every per-item body in this directory is written once as FQ_HD functions:
-// nvcc builds them into the sm_90a kernels (width.cu, search.cu, sw.cu) and
-// g++ builds the same bodies into a small host library (host_kernels.cpp)
-// that the CPU tests hold against the plain PyTorch versions.
+// nvcc builds them into the sm_90a kernels (width.cu, search.cu, scan.cu,
+// sw.cu) and g++ builds the same bodies into a small host library
+// (host_kernels.cpp) that the CPU tests hold against the plain PyTorch
+// versions.
 #pragma once
 
 #include <stdint.h>
@@ -29,6 +30,13 @@ FQ_HD int fq_ctz(uint32_t x) {
   return __ffs(x) - 1;
 #else
   return __builtin_ctz(x);
+#endif
+}
+
+// a block-wide barrier in device code (host builds run one item at a time)
+FQ_HD void fq_sync_block() {
+#if defined(__CUDA_ARCH__)
+  __syncthreads();
 #endif
 }
 
@@ -73,14 +81,18 @@ FQ_HD int fm_L2(const FmView& fm, int sel, int c) {
   return sel ? rev : fwd;
 }
 
-// Row of the Occ block holding BWT row bound k + 1 of index `sel`, loaded
-// into r[0..11] (occ[4], words[8]); returns the bases of the block to
-// count (bwt_occ: rows [0..k], sentinel row removed).
-FQ_HD int fm_load(const FmView& fm, int sel, int k, int32_t r[12]) {
-  int kk = k + 1;
-  int kp = kk - (kk > (sel ? fm.primary[1] : fm.primary[0]) ? 1 : 0);
-  kp = fq_clamp(kp, 0, fm.n);
-  const int32_t* row = fm.tab + ((int64_t)sel * fm.nbp + (kp >> 7)) * 16;
+// Position of BWT row bound k + 1 of index `sel` in the Occ rows
+// (bwt_occ: rows [0..k], sentinel row removed): its block is pos >> 7, the
+// bases of the block to count pos & 127.
+FQ_HD int fm_pos(const FmView& fm, int sel, int k) {
+  const int kk = k + 1;
+  const int kp = kk - (kk > (sel ? fm.primary[1] : fm.primary[0]) ? 1 : 0);
+  return fq_clamp(kp, 0, fm.n);
+}
+
+// Occ block `blk` of index `sel` loaded into r[0..11] (occ[4], words[8])
+FQ_HD void fm_row(const FmView& fm, int sel, int blk, int32_t r[12]) {
+  const int32_t* row = fm.tab + ((int64_t)sel * fm.nbp + blk) * 16;
 #if defined(__CUDA_ARCH__)
   const int4* q = reinterpret_cast<const int4*>(row);
   int4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2);
@@ -90,29 +102,34 @@ FQ_HD int fm_load(const FmView& fm, int sel, int k, int32_t r[12]) {
 #else
   for (int i = 0; i < 12; ++i) r[i] = row[i];
 #endif
+}
+
+// Row of the Occ block holding BWT row bound k + 1 of index `sel`, loaded
+// into r[0..11]; returns the bases of the block to count.
+FQ_HD int fm_load(const FmView& fm, int sel, int k, int32_t r[12]) {
+  const int kp = fm_pos(fm, sel, k);
+  fm_row(fm, sel, kp >> 7, r);
   return kp & 127;
 }
 
 // occ of base c in the first `rem` bases of the loaded block, plus the
-// block checkpoint (2-bit equality masks + popcount, bwt.h __occ_aux)
+// block checkpoint (2-bit equality masks + popcount, bwt.h __occ_aux).
+// All eight words with a branch-free mask each and the checkpoint by
+// selects: no run-time trip count and no indexed array, so the row stays
+// in registers.
 FQ_HD int fm_count(const int32_t r[12], int rem, int c) {
   const uint32_t pat = (uint32_t)c * 0x55555555u;  // c repeated 16 times
-  int cnt = r[c];
-  const int nw = (rem + 15) >> 4;
-  for (int w = 0; w < nw; ++w) {
-    const int p = fq_min(rem - 16 * w, 16);
-    const uint32_t mask = p >= 16 ? 0xFFFFFFFFu : (0xFFFFFFFFu << (32 - 2 * p));
+  int cnt = fq_pick4(r, c);
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    const int p = rem - 16 * w;  // bases of word w still to count
+    const uint32_t m = p >= 16 ? 0x55555555u
+                       : p > 0 ? 0x55555555u << (32 - 2 * p)
+                               : 0u;
     const uint32_t x = (uint32_t)r[4 + w] ^ pat;
-    const uint32_t y = x | (x >> 1);
-    cnt += fq_popc(~y & 0x55555555u & mask);
+    cnt += fq_popc(~(x | (x >> 1)) & m);
   }
   return cnt;
-}
-
-FQ_HD int fm_occ1(const FmView& fm, int sel, int k, int c) {
-  int32_t r[12];
-  const int rem = fm_load(fm, sel, k, r);
-  return fm_count(r, rem, c);
 }
 
 // occ of all four bases in the first `rem` bases of the loaded block plus

@@ -1,8 +1,8 @@
 // Host (g++) build of the kernels' bodies, for the CPU tests: the same
-// width_unit / fq_resident_read / fq_scan_lane / sw_lane_step code that
-// nvcc compiles into width.cu, search.cu, scan.cu and sw.cu, with the
-// kernels' argument layouts and their order of evaluation emulated
-// serially.  Never used on the product path.
+// width_unit / fq_resident_read / fq_scan_* round pieces / sw_lane_step
+// code that nvcc compiles into width.cu, search.cu, scan.cu and sw.cu,
+// with the kernels' argument layouts and their order of evaluation
+// emulated serially.  Never used on the product path.
 #include <algorithm>
 #include <vector>
 
@@ -10,13 +10,27 @@
 #include "sw_body.cuh"
 #include "width_body.cuh"
 
+// width_unit's accessor on the host: the unit's own rows, no staging.
+struct WidthRows {
+  const uint8_t* codes;
+  int32_t *w, *bid;
+  void load(int, int) {}
+  int code(int i) const { return codes[i]; }
+  void put(int i, int wv, int b) {
+    w[i] = wv;
+    bid[i] = b;
+  }
+  void store(int, int) {}
+};
+
 extern "C" int fq_width_host(const int32_t* tab, const int32_t* fm_hp,
                              const uint8_t* units, const int32_t* sel, int M,
                              int L, int32_t* w, int32_t* bid) {
   const FmView fm = fm_view(tab, fm_hp);
   for (int m = 0; m < M; ++m) {
     const int64_t off = (int64_t)m * L;
-    width_unit(fm, sel[m], units + off, L, w + off, bid + off);
+    WidthRows io = {units + off, w + off, bid + off};
+    width_unit(fm, sel[m], L, io);
   }
   return 0;
 }
@@ -50,19 +64,57 @@ extern "C" int fq_search_host(const int32_t* tab, const int32_t* fm_hp,
   return 0;
 }
 
+// The scan kernel's whole chunk (scan.cu's fq_scan_launch arguments, less
+// the sync scratch): each round advances the lanes in order, then flushes
+// the lanes that are done and refills them in lane order with the next
+// reads, until no lane is live and no read is left below n_ids.  Each
+// lane's bucket heads are interleaved with its block's as in the kernel's
+// shared memory.  stats: [rounds, busy steps].
 extern "C" int fq_scan_host(const int32_t* tab, const int32_t* fm_hp,
                             const int32_t* sp, const uint8_t* seqs,
                             const int32_t* lens, const int32_t* md,
                             const int32_t* use_seed, const int32_t* n_n,
                             int N, int32_t* widths, const int32_t* seed_w,
-                            void* lanes, int B, void* pool, void* freel,
-                            void* heads, int32_t* alns, int k_inner) {
+                            int32_t* alns, int32_t* n_aln, int32_t* fb,
+                            int32_t* steps, int B, int k_inner, int n_ids,
+                            int64_t* stats) {
+  const int T = FQ_SCAN_THREADS;
   const FmView fm = fm_view(tab, fm_hp);
   const SearchParams P = search_params(sp);
   const FqChunk ck = {seqs, lens, md, use_seed, n_n, N, widths, seed_w};
-  for (int b = 0; b < B; ++b)
-    fq_scan_lane(b, fm, P, ck, (FqLane*)lanes, (FqSlot*)pool,
-                 (uint16_t*)freel, (int16_t*)heads, alns, k_inner);
+  const FqOut out = {alns, n_aln, fb, steps, nullptr};
+  std::vector<FqSlot> pool((size_t)P.NP * B);
+  std::vector<uint16_t> freel((size_t)P.NP * B);
+  std::vector<int16_t> heads((size_t)FQ_NBUCK * T * ((B + T - 1) / T));
+  std::vector<FqLane> lanes(B);
+  std::vector<char> flushed(B);
+  for (int b = 0; b < B; ++b) fq_scan_refill(lanes[b], ck, b);
+  int next_read = B;
+  int64_t rounds = 0, busy = 0;
+  auto live = [&] {
+    return std::any_of(lanes.begin(), lanes.end(),
+                       [](const FqLane& s) { return !s.done; });
+  };
+  while (live() || next_read < n_ids) {
+    for (int b = 0; b < B; ++b) {
+      const FqWork w = {pool.data() + (size_t)b * P.NP,
+                        freel.data() + (size_t)b * P.NP,
+                        heads.data() + (size_t)(b / T) * T * FQ_NBUCK + b % T,
+                        nullptr, T};
+      fq_scan_advance(lanes[b], fm, P, ck, w, out, k_inner);
+    }
+    for (int b = 0; b < B; ++b) {
+      flushed[b] = fq_scan_flush(lanes[b], out);
+      if (flushed[b]) busy += lanes[b].steps;
+    }
+    int rank = 0;
+    for (int b = 0; b < B; ++b)
+      if (flushed[b]) fq_scan_refill(lanes[b], ck, next_read + rank++);
+    next_read += rank;
+    ++rounds;
+  }
+  stats[0] = rounds;
+  stats[1] = busy;
   return 0;
 }
 

@@ -22,8 +22,9 @@
 // The search is resumable: fq_lane_init sets a read up and fq_lane_step
 // advances it by one step, with everything it carries between steps in an
 // FqLane record plus the read's workspace.  fq_resident_read (search.cu)
-// runs a read to the end; fq_scan_lane (scan.cu) suspends it every
-// K_INNER steps.
+// runs a read to the end; the scan kernel (scan.cu) advances each lane's
+// read K_INNER steps a round and flushes and refills lanes between rounds
+// (fq_scan_advance, fq_scan_flush, fq_scan_refill).
 #pragma once
 
 #include "fq_common.cuh"
@@ -133,14 +134,13 @@ struct FqWork {
 FQ_HD int16_t& fq_head(const FqWork& w, int b) { return w.heads[b * w.hs]; }
 
 // Everything the search carries from one step to the next besides the
-// workspace, so a read can be suspended after any step and resumed later
-// (the scan kernel keeps one record per lane in global memory; the
-// resident kernel keeps it in registers).  32 int32 words; the first six
-// are ops/search_kernels.REC_*, which the outer round reads and writes.
-struct alignas(16) FqLane {
+// workspace, so a read can be suspended after any step and resumed later.
+// Both kernels keep it in registers: the resident kernel for one read, the
+// scan kernel for one lane across the rounds of a chunk.
+struct FqLane {
   int32_t rid;       // the lane's read (-1: idle)
   int32_t done;      // the search ended (or the read is dead)
-  int32_t fresh;     // set by the outer round: init the read first
+  int32_t fresh;     // set by the refill: init the read first
   int32_t n_aln, overflow, steps;
   int32_t n_entries, hwm;  // entries held; the most held at once
   int32_t bump, top;        // the pool's bump pointer, free-stack top
@@ -148,9 +148,7 @@ struct alignas(16) FqLane {
   int32_t ch_on;
   uint32_t bm[4];  // non-empty buckets
   int32_t ch[8];   // exact-walk chain register
-  int32_t pad[6];
 };
-static_assert(sizeof(FqLane) == 128, "FqLane must stay 32 int32 words");
 
 // The bucket bitmap is read and written through constant indices only, so
 // a record held in a local variable can live in registers.
@@ -563,23 +561,52 @@ FQ_HD void fq_resident_read(const FmView& fm, const SearchParams& P,
   o.hwm[rid] = s.hwm;
 }
 
-// The scan kernel's body for lane b: start the lane's read if the outer
-// round marked it fresh, then advance it by at most k_inner steps.  An
-// idle or finished lane is left untouched.  The read's inputs are the
-// chunk's rows `rid`, so gap_shadow updates the chunk's width rows in
-// place (a read lives in exactly one lane).  A lane's whole workspace is
-// its own slab in global memory.
-FQ_HD void fq_scan_lane(int b, const FmView& fm, const SearchParams& P,
-                        const FqChunk& c, FqLane* lanes, FqSlot* pool,
-                        uint16_t* freel, int16_t* heads, int32_t* alns,
-                        int k_inner) {
-  FqLane s = lanes[b];
+// ---- the scan kernel's round pieces (scan.cu; host_kernels.cpp's
+// fq_scan_host runs the same pieces lane by lane) ----
+
+// Lanes a block of the scan kernel, and the stride of their interleaved
+// bucket heads: 1,024 lanes on 32 SMs (about 1% faster than 128 lanes a
+// block on 8 SMs, PERF.md).
+#define FQ_SCAN_THREADS 32
+
+// Start read `id` in a lane (the outer round's refill): an id >= N or a
+// padding row (md < 0) leaves the lane idle (rid -1) for good, a dead read
+// (more Ns than md, or empty) is done at once with no work, and any other
+// read is marked fresh for fq_scan_advance to set up.
+FQ_HD void fq_scan_refill(FqLane& s, const FqChunk& c, int id) {
+  const int r = fq_min(id, c.N - 1);
+  const bool valid = id < c.N && c.md[r] >= 0;
+  const bool dead = !valid || c.n_n[r] > c.md[r] || c.lens[r] <= 0;
+  s.rid = valid ? id : -1;
+  s.done = dead ? 1 : 0;
+  s.fresh = dead ? 0 : 1;
+  s.n_aln = 0;
+  s.overflow = 0;
+  s.steps = 0;
+}
+
+// One round of a lane: if it holds a read that is not done, set the read
+// up if it is fresh, then advance it by at most k_inner steps.  The read's
+// inputs are the chunk's rows `rid` (gap_shadow updates its width rows in
+// place: a read lives in exactly one lane) and its hit rows are its rows
+// of o.alns, which the caller zeroed.
+FQ_HD void fq_scan_advance(FqLane& s, const FmView& fm, const SearchParams& P,
+                           const FqChunk& c, FqWork w, const FqOut& o,
+                           int k_inner) {
   if (s.rid < 0 || s.done) return;
   const FqRead r = fq_chunk_read(P, c, s.rid);
-  const FqWork w = {pool + (int64_t)b * P.NP, freel + (int64_t)b * P.NP,
-                    heads + (int64_t)b * FQ_NBUCK,
-                    alns + (int64_t)b * FQ_A_MAX * 3, 1};
+  w.alns = o.alns + (int64_t)s.rid * FQ_A_MAX * 3;
   if (s.fresh) fq_lane_init(s, P, fm.n, r, c.n_n[s.rid], w);
   fq_lane_steps(s, fm, P, r, w, k_inner);
-  lanes[b] = s;
+}
+
+// Flush a lane that is done and holds a read: its n_aln, fallback bits and
+// steps go to the read's rows (its hit rows are there already).  Returns
+// whether the lane flushed; the caller then refills it.
+FQ_HD bool fq_scan_flush(const FqLane& s, const FqOut& o) {
+  if (!s.done || s.rid < 0) return false;
+  o.n_aln[s.rid] = s.n_aln;
+  o.fb[s.rid] = s.overflow;
+  o.steps[s.rid] = s.steps;
+  return true;
 }

@@ -131,8 +131,10 @@ def cuda_library() -> ctypes.CDLL:
             lib.fq_search_launch.restype = _I
             lib.fq_search_launch.argtypes = ([_P] * 8 + [_I] + [_P] * 10)
             lib.fq_scan_launch.restype = _I
-            lib.fq_scan_launch.argtypes = ([_P] * 8 + [_I] + [_P] * 3 + [_I]
-                                           + [_P] * 4 + [_I, _P])
+            lib.fq_scan_launch.argtypes = ([_P] * 8 + [_I] + [_P] * 8
+                                           + [_I] * 3 + [_P] * 3)
+            lib.fq_scan_max_lanes.restype = _I
+            lib.fq_scan_max_lanes.argtypes = []
             lib.fq_sw_launch.restype = _I
             lib.fq_sw_launch.argtypes = [_P] * 4 + [_I] * 3 + [_P] * 2
             _cuda_lib = lib
@@ -155,8 +157,8 @@ def host_library() -> ctypes.CDLL:
             lib.fq_search_host.restype = _I
             lib.fq_search_host.argtypes = ([_P] * 8 + [_I] + [_P] * 8)
             lib.fq_scan_host.restype = _I
-            lib.fq_scan_host.argtypes = ([_P] * 8 + [_I] + [_P] * 3 + [_I]
-                                         + [_P] * 4 + [_I])
+            lib.fq_scan_host.argtypes = ([_P] * 8 + [_I] + [_P] * 6
+                                         + [_I] * 3 + [_P])
             lib.fq_sw_host.restype = _I
             lib.fq_sw_host.argtypes = [_P] * 4 + [_I] * 3 + [_P]
             _host_lib = lib

@@ -8,9 +8,10 @@ one [len, md, use_seed] aux array; there:
    and of its seed (ops/search_kernels.width);
 2. a search kernel runs bwt_match_gap for every read: by default the
    resident kernel, one launch per chunk (ops/search_kernels.
-   resident_search); with ``FQ_BS_PALLAS=2`` the scan kernel, K_INNER
-   steps of B persistent lanes per launch, inside ``scan_search``'s outer
-   round of lane flush and refill (ops/search_kernels.inner_scan);
+   resident_search); with ``FQ_BS_PALLAS=2`` the scan kernel, B
+   persistent lanes advanced K_INNER steps a round with the lanes' flush
+   and refill between rounds, also one launch per chunk (ops/
+   search_kernels.scan_chunk);
 3. ``compact_hits`` packs the hit rows densely, so only about one row per
    read comes back to the host.
 
@@ -41,11 +42,9 @@ from .search_kernels import (
     FB_LONG,
     FB_NAMES,
     NBUCK,
-    PlainLanes,
-    ScanLanes,
     SearchParams,
-    inner_scan,
     resident_search,
+    scan_chunk,
     width,
 )
 
@@ -181,72 +180,19 @@ def chunk_inputs(fm: DeviceFM, packed: torch.Tensor, aux: torch.Tensor,
                 widths=widths, seed_w=seed_w)
 
 
-def scan_search(fm: DeviceFM, P: SearchParams, lanes, inner: int,
-                advance=inner_scan):
-    """The scan path's outer round (the reference's ``_search_kernel``
-    outer_body, fastquick_tpu/ops/batch_search.py:777-823) over a lane
-    state (ScanLanes, or PlainLanes for the plain version) of one chunk.
-
-    Lanes start on reads 0..B-1.  Each round runs ``advance(fm, P, lanes,
-    inner)`` once (inner_scan: K_INNER steps of every lane), flushes the
-    lanes that are done and hold a read, and refills them in lane order
-    with the next reads; a padding row or an id >= N leaves a lane idle
-    for good.  Rounds go on while a lane is searching or reads remain.
-    Reads remain while the next id is below the last real row + 1, not N:
-    every padding row idles one lane, so the reference's loop (to N) never
-    ends when a chunk's padding rows outnumber its lanes; where it ends,
-    both count the same rounds.  Flush and refill are a few tensor ops on
-    the lanes' device; the loop condition is the round's one host sync.
-
-    Returns (n_aln, alns, fb, steps) per read as resident_search does, the
-    number of rounds and the busy steps (those of flushed lanes, a device
-    scalar)."""
-    N, B = lanes.N, lanes.B
-    dev = lanes.rid.device
-    i32 = torch.int32
-    # row N takes the writes of lanes that do not flush
-    out_n = torch.zeros(N + 1, dtype=i32, device=dev)
-    out_al = torch.zeros((N + 1, A_MAX, 3), dtype=i32, device=dev)
-    out_fb = torch.zeros(N + 1, dtype=i32, device=dev)
-    out_steps = torch.zeros(N + 1, dtype=i32, device=dev)
-    row = torch.arange(A_MAX, device=dev)[None, :, None]
-    lanes.refill(torch.ones(B, dtype=torch.bool, device=dev),
-                 torch.arange(B, device=dev))
-    next_read = torch.tensor(min(B, N), device=dev)
-    busy = torch.zeros((), dtype=torch.long, device=dev)
-    rounds = 0
-    while bool((~lanes.done).any() | (next_read < lanes.n_ids)):
-        advance(fm, P, lanes, inner)
-        flush = lanes.done & (lanes.rid >= 0)
-        tgt = torch.where(flush, lanes.rid.long(), N)
-        n_aln = lanes.n_aln
-        out_n[tgt] = n_aln.to(i32)
-        out_al[tgt] = torch.where(row < n_aln[:, None, None], lanes.hits,
-                                  0).to(i32)
-        out_fb[tgt] = lanes.overflow.to(i32)
-        out_steps[tgt] = lanes.steps.to(i32)
-        busy += torch.where(flush, lanes.steps.long(), 0).sum()
-        rank = flush.long().cumsum(0)
-        lanes.refill(flush, next_read + rank - 1)
-        next_read = next_read + rank[-1]
-        rounds += 1
-    return out_n[:N], out_al[:N], out_fb[:N], out_steps[:N], rounds, busy
-
-
 def search_chunk(fm: DeviceFM, packed: torch.Tensor, aux: torch.Tensor,
                  P: SearchParams, kernel: str = "resident", lanes: int = 0,
                  inner: int = 0):
     """The device half of one chunk: unpack, widths, search, compaction.
-    ``lanes`` and ``inner`` are the scan kernel's lane count and steps per
-    launch.  Returns (meta (3 Npad,) [n_aln | offs | fb], rows (3 Npad, 3)
+    ``lanes`` and ``inner`` are the scan kernel's lane count and steps a
+    round.  Returns (meta (3 Npad,) [n_aln | offs | fb], rows (3 Npad, 3)
     on the device, busy steps (a device scalar), outer rounds (0 for the
     resident kernel, which has none))."""
     N = packed.shape[0]
     inp = chunk_inputs(fm, packed, aux, P)
     if kernel == "scan":
-        cls = PlainLanes if packed.device.type == "cpu" else ScanLanes
-        n_aln, alns, fb, steps, rounds, busy = scan_search(
-            fm, P, cls(fm, P, min(lanes, N), **inp), inner)
+        n_aln, alns, fb, steps, rounds, busy = scan_chunk(fm, P, lanes,
+                                                          inner, **inp)
     else:
         n_aln, alns, fb, steps = resident_search(fm, P, **inp)
         rounds, busy = 0, steps.long().sum()

@@ -3,9 +3,10 @@ csrc/scan.cu) with their plain PyTorch versions.
 
 ``width`` replaces the Pallas _width_kernel (fastquick_tpu/ops/
 search_pallas.py:1603), ``resident_search`` the Pallas _resident_kernel
-(:773) and ``inner_scan`` the Pallas v1 scan kernel _kernel (:154).  Each
-wrapper launches its CUDA kernel for CUDA tensors (and raises if that
-fails) and runs the plain version for CPU tensors:
+(:773) and ``scan_chunk`` the Pallas v1 scan kernel _kernel (:154) with
+the outer round the reference ran around it.  Each wrapper launches its
+CUDA kernel for CUDA tensors (and raises if that fails) and runs the plain
+version for CPU tensors:
 
 - width: ops/fm.cal_width_planes;
 - search: ``search_plain`` below, a lockstep formulation over lanes of
@@ -14,9 +15,9 @@ fails) and runs the plain version for CPU tensors:
   package's XLA ``_search_kernel`` step (fastquick_tpu/ops/
   batch_search.py:342-775), which tests/test_search_pallas.py pins equal
   to the Pallas kernels;
-- scan: ``scan_plain``, K_INNER of those same lockstep steps on a
-  PlainLanes state; the kernel keeps its lanes as ScanLanes records.  The
-  outer round around either is ops/batch_search.scan_search.
+- scan: ``scan_search``, the reference's outer round over a PlainLanes
+  state, K_INNER of those same lockstep steps a round.  The kernel runs
+  the whole chunk, rounds included, in one launch.
 
 Per-read semantics do not depend on the lane a read runs in or on the
 reads beside it (chunk-level parameters aside: max_gapo and the step cap
@@ -123,6 +124,15 @@ def _check_chunk(P: SearchParams, N: int, widths: torch.Tensor,
                          f"{tuple(seed_w.shape)}")
 
 
+def _kernel_inputs(seqs0, lens, md, use_seed, n_n, seed_w):
+    """A chunk's per-read inputs in the types the search kernels take:
+    uint8 codes, int32 scalars and seed width rows, contiguous."""
+    i32 = torch.int32
+    return (seqs0.to(torch.uint8).contiguous(),
+            *(t.to(i32).contiguous() for t in (lens, md, use_seed, n_n)),
+            seed_w.to(i32).contiguous())
+
+
 def resident_search(fm: DeviceFM, P: SearchParams, seqs0: torch.Tensor,
                     lens: torch.Tensor, md: torch.Tensor,
                     use_seed: torch.Tensor, n_n: torch.Tensor,
@@ -155,10 +165,8 @@ def resident_search(fm: DeviceFM, P: SearchParams, seqs0: torch.Tensor,
     elif (hwm.shape != (N,) or hwm.dtype != i32 or not hwm.is_cuda
           or not hwm.is_contiguous()):
         raise ValueError("hwm must be a contiguous (N,) int32 CUDA tensor")
-    seqs8 = seqs0.to(torch.uint8).contiguous()
-    lens32, md32 = lens.to(i32).contiguous(), md.to(i32).contiguous()
-    us32, nn32 = use_seed.to(i32).contiguous(), n_n.to(i32).contiguous()
-    seed32 = seed_w.to(i32).contiguous()
+    seqs8, lens32, md32, us32, nn32, seed32 = _kernel_inputs(
+        seqs0, lens, md, use_seed, n_n, seed_w)
     pool = torch.empty((N, P.NP, 4), dtype=i32, device=dev)
     freel = torch.empty((N, P.NP), dtype=torch.int16, device=dev)
     alns = torch.zeros((N, A_MAX, 3), dtype=i32, device=dev)
@@ -592,115 +600,111 @@ def search_plain(fm: DeviceFM, P: SearchParams, seqs0, lens, md, use_seed,
 
 # ----------------------------------------------------------------- scan
 
-# words of the FqLane record (csrc/search_body.cuh) that the outer round
-# reads and writes; the rest is the kernel's own
-REC_RID, REC_DONE, REC_FRESH, REC_N_ALN, REC_FB, REC_STEPS = range(6)
-REC_WORDS = 32
+
+def scan_search(fm: DeviceFM, P: SearchParams, lanes: PlainLanes,
+                inner: int):
+    """The plain version of the scan path over a PlainLanes state of one
+    chunk: the reference's ``_search_kernel`` outer_body (fastquick_tpu/
+    ops/batch_search.py:777-823) around K_INNER lockstep steps.
+
+    Lanes start on reads 0..B-1.  Each round advances every lane ``inner``
+    steps (a lane that is done takes none), flushes the lanes that are done
+    and hold a read, and refills them in lane order with the next reads; a
+    padding row or an id >= N leaves a lane idle for good.  Rounds go on
+    while a lane is searching or reads remain.  Reads remain while the next
+    id is below the last real row + 1, not N: every padding row idles one
+    lane, so the reference's loop (to N) never ends when a chunk's padding
+    rows outnumber its lanes; where it ends, both count the same rounds.
+    The loop condition is a host sync a round.
+
+    Returns (n_aln, alns, fb, steps) per read as resident_search does, the
+    number of rounds and the busy steps (those of flushed lanes, a device
+    scalar)."""
+    N, B = lanes.N, lanes.B
+    dev = lanes.rid.device
+    i32 = torch.int32
+    # row N takes the writes of lanes that do not flush
+    out_n = torch.zeros(N + 1, dtype=i32, device=dev)
+    out_al = torch.zeros((N + 1, A_MAX, 3), dtype=i32, device=dev)
+    out_fb = torch.zeros(N + 1, dtype=i32, device=dev)
+    out_steps = torch.zeros(N + 1, dtype=i32, device=dev)
+    row = torch.arange(A_MAX, device=dev)[None, :, None]
+    lanes.refill(torch.ones(B, dtype=torch.bool, device=dev),
+                 torch.arange(B, device=dev))
+    next_read = torch.tensor(min(B, N), device=dev)
+    busy = torch.zeros((), dtype=torch.long, device=dev)
+    rounds = 0
+    while bool((~lanes.done).any() | (next_read < lanes.n_ids)):
+        for _ in range(inner):
+            lanes.step()
+        flush = lanes.done & (lanes.rid >= 0)
+        tgt = torch.where(flush, lanes.rid.long(), N)
+        n_aln = lanes.n_aln
+        out_n[tgt] = n_aln.to(i32)
+        out_al[tgt] = torch.where(row < n_aln[:, None, None], lanes.hits,
+                                  0).to(i32)
+        out_fb[tgt] = lanes.overflow.to(i32)
+        out_steps[tgt] = lanes.steps.to(i32)
+        busy += torch.where(flush, lanes.steps.long(), 0).sum()
+        rank = flush.long().cumsum(0)
+        lanes.refill(flush, next_read + rank - 1)
+        next_read = next_read + rank[-1]
+        rounds += 1
+    return out_n[:N], out_al[:N], out_fb[:N], out_steps[:N], rounds, busy
 
 
-class ScanLanes:
-    """Lane state of the scan kernel (csrc/scan.cu) over one chunk's
-    inputs: one (32,) int32 FqLane record per lane and per-lane slabs of
-    pool, free stack, bucket heads and hit rows.  Same interface as
-    PlainLanes for the outer round (batch_search.scan_search).  Reads are
-    indexed by id in the chunk's tensors: the kernel applies gap_shadow to
-    ``widths`` in place."""
+def scan_chunk(fm: DeviceFM, P: SearchParams, lanes: int, inner: int,
+               seqs0: torch.Tensor, lens: torch.Tensor, md: torch.Tensor,
+               use_seed: torch.Tensor, n_n: torch.Tensor,
+               widths: torch.Tensor, seed_w: torch.Tensor):
+    """The scan path of one chunk of N reads on min(lanes, N) lanes,
+    ``inner`` steps a round.  Inputs as for resident_search (``widths`` is
+    scratch: the CUDA kernel applies gap_shadow to it in place).
 
-    def __init__(self, fm: DeviceFM, P: SearchParams, B: int, seqs0, lens,
-                 md, use_seed, n_n, widths, seed_w):
-        N = seqs0.shape[0]
-        dev = seqs0.device
-        i32 = torch.int32
-        _check_chunk(P, N, widths, seed_w)
-        self.fm, self.P, self.N = fm, P, N
-        self.seqs8 = seqs0.to(torch.uint8).contiguous()
-        self.lens, self.md = lens.to(i32).contiguous(), md.to(i32).contiguous()
-        self.use_seed = use_seed.to(i32).contiguous()
-        self.n_n = n_n.to(i32).contiguous()
-        self.n_ids = _n_ids(md)
-        self.widths = widths
-        self.seed_w = seed_w.to(i32).contiguous()
-        self.rec = torch.zeros((B, REC_WORDS), dtype=i32, device=dev)
-        self.rec[:, REC_RID] = -1
-        self.rec[:, REC_DONE] = 1
-        self.pool = torch.empty((B, P.NP, 4), dtype=i32, device=dev)
-        self.freel = torch.empty((B, P.NP), dtype=torch.int16, device=dev)
-        self.heads = torch.empty((B, NBUCK), dtype=torch.int16, device=dev)
-        self.alns = torch.zeros((B, A_MAX, 3), dtype=i32, device=dev)
-
-    @property
-    def B(self) -> int:
-        return self.rec.shape[0]
-
-    @property
-    def rid(self) -> torch.Tensor:
-        return self.rec[:, REC_RID]
-
-    @property
-    def done(self) -> torch.Tensor:
-        return self.rec[:, REC_DONE] != 0
-
-    @property
-    def n_aln(self) -> torch.Tensor:
-        return self.rec[:, REC_N_ALN]
-
-    @property
-    def overflow(self) -> torch.Tensor:
-        return self.rec[:, REC_FB]
-
-    @property
-    def steps(self) -> torch.Tensor:
-        return self.rec[:, REC_STEPS]
-
-    @property
-    def hits(self) -> torch.Tensor:
-        return self.alns
-
-    def refill(self, mask: torch.Tensor, ids: torch.Tensor) -> None:
-        """Start read ids[b] in every lane b where mask, on the device: an
-        id >= N or a padding row leaves the lane idle, a dead read is done
-        at once, and any other read is marked fresh for the kernel to set
-        up (fq_lane_init) at its next launch."""
-        r = ids.clamp(0, self.N - 1)
-        valid = mask & (ids < self.N) & (self.md[r] >= 0)
-        dead = ~valid | (self.n_n[r] > self.md[r]) | (self.lens[r] <= 0)
-        new = torch.zeros_like(self.rec)
-        new[:, REC_RID] = torch.where(valid, ids, -1)
-        new[:, REC_DONE] = dead
-        new[:, REC_FRESH] = ~dead
-        self.rec = torch.where(mask[:, None], new, self.rec)
-
-
-def scan_plain(fm: DeviceFM, P: SearchParams, lanes: PlainLanes,
-               K_INNER: int) -> None:
-    """Plain version of the scan kernel: K_INNER lockstep steps of every
-    lane of a PlainLanes state."""
-    for _ in range(K_INNER):
-        lanes.step()
-
-
-def inner_scan(fm: DeviceFM, P: SearchParams, lanes, K_INNER: int) -> None:
-    """K_INNER lockstep steps of every lane (a lane that is done takes
-    none).  For CPU tensors it runs scan_plain on PlainLanes; for CUDA
-    tensors it launches the scan kernel on ScanLanes, or raises."""
-    if lanes.rid.device.type == "cpu":
-        scan_plain(fm, P, lanes, K_INNER)
-        return
-    if not isinstance(lanes, ScanLanes):
-        raise TypeError("the scan kernel runs on ScanLanes, got "
-                        f"{type(lanes).__name__}")
-    s = lanes
-    build.require_cuda(s.rec, s.seqs8, s.widths, s.seed_w, fm.words)
+    For CPU tensors it runs scan_search over PlainLanes; for CUDA tensors
+    it launches the scan kernel once for the whole chunk, rounds, flushes
+    and refills included, or raises.  Returns what scan_search returns:
+    (n_aln, alns, fb, steps), the rounds (read back once) and the busy
+    steps (a device scalar)."""
+    N = seqs0.shape[0]
+    B = min(lanes, N)
+    if seqs0.device.type == "cpu":
+        return scan_search(fm, P, PlainLanes(fm, P, B, seqs0, lens, md,
+                                             use_seed, n_n, widths, seed_w),
+                           inner)
+    build.require_cuda(seqs0, lens, md, use_seed, n_n, widths, seed_w,
+                       fm.words)
+    _check_chunk(P, N, widths, seed_w)
     lib = build.cuda_library()
+    fit = lib.fq_scan_max_lanes()
+    if fit < 0:
+        raise RuntimeError(f"scan kernel occupancy query failed: CUDA error "
+                           f"{-fit}")
+    if not 0 < B <= fit:
+        raise ValueError(f"{B} scan lanes: one launch runs 1 to {fit} lanes "
+                         "(the lanes that fit the card at once)")
+    dev = seqs0.device
+    i32 = torch.int32
+    seqs8, lens32, md32, us32, nn32, seed32 = _kernel_inputs(
+        seqs0, lens, md, use_seed, n_n, seed_w)
+    pool = torch.empty((B, P.NP, 4), dtype=i32, device=dev)
+    freel = torch.empty((B, P.NP), dtype=torch.int16, device=dev)
+    alns = torch.zeros((N, A_MAX, 3), dtype=i32, device=dev)
+    n_aln = torch.zeros(N, dtype=i32, device=dev)
+    fb = torch.zeros(N, dtype=i32, device=dev)
+    steps = torch.zeros(N, dtype=i32, device=dev)
+    sync = torch.zeros(2 * B, dtype=i32, device=dev)
+    stats = torch.zeros(2, dtype=torch.long, device=dev)  # rounds, busy
     hp = fm.host_params()
     sp = P.to_array()
-    stream = torch.cuda.current_stream(s.rec.device).cuda_stream
+    stream = torch.cuda.current_stream(dev).cuda_stream
     p = build.ptr
     rc = lib.fq_scan_launch(
         p(fm.kernel_table()), hp.ctypes.data_as(ctypes.c_void_p),
-        sp.ctypes.data_as(ctypes.c_void_p), p(s.seqs8), p(s.lens), p(s.md),
-        p(s.use_seed), p(s.n_n), s.N, p(s.widths), p(s.seed_w), p(s.rec),
-        s.B, p(s.pool), p(s.freel), p(s.heads), p(s.alns), int(K_INNER),
-        ctypes.c_void_p(stream))
+        sp.ctypes.data_as(ctypes.c_void_p), p(seqs8), p(lens32), p(md32),
+        p(us32), p(nn32), N, p(widths), p(seed32), p(pool), p(freel),
+        p(alns), p(n_aln), p(fb), p(steps), B, int(inner), _n_ids(md),
+        p(sync), p(stats), ctypes.c_void_p(stream))
     build.check(rc, "scan")
     build.launch_counts["scan"] += 1
+    return n_aln, alns, fb, steps, int(stats[0]), stats[1]

@@ -1,8 +1,9 @@
 """The port's scan path (``FQ_BS_PALLAS=2``): its BatchEngine against
 fastquick_tpu's scan-mode Pallas engine (interpret mode), its XLA lockstep
 path and HostEngine; the plain scan path against search_plain at several
-K_INNER and lane counts; the scan kernel's per-lane body, built for the
-host with g++, against the plain version; and the kernel selection.  Every
+K_INNER and lane counts; the scan kernel's whole chunk (its round pieces
+built for the host with g++, rounds, flushes and refills emulated lane by
+lane) against the plain version; and the kernel selection.  Every
 comparison is exact."""
 
 import ctypes
@@ -21,9 +22,10 @@ from fastquick_tpu.align.engine import HostEngine  # noqa: E402
 from fastquick_tpu.align.opts import GapOpt  # noqa: E402
 from fastquick_tpu.ops import batch_search as jbs  # noqa: E402
 from fastquick_tpu_torch.ops import batch_search as tbs  # noqa: E402
+from fastquick_tpu_torch.ops import search_kernels as tsk  # noqa: E402
 from fastquick_tpu_torch.ops.search_kernels import (  # noqa: E402
     PlainLanes,
-    ScanLanes,
+    scan_search,
     search_plain,
 )
 
@@ -98,7 +100,7 @@ def test_scan_plain_matches_search_plain(inner, lanes):
     whatever the lanes and the steps between flushes."""
     fm, P, inp = _chunk()
     want = search_plain(fm, P, **inp)
-    got = tbs.scan_search(fm, P, PlainLanes(fm, P, lanes, **inp), inner)
+    got = scan_search(fm, P, PlainLanes(fm, P, lanes, **inp), inner)
     for name, a, b in zip(("n_aln", "alns", "fb", "steps"), got, want):
         assert torch.equal(a, b), name
     assert int((want[2] != 0).sum()) > 0, "world should exercise fallbacks"
@@ -106,37 +108,85 @@ def test_scan_plain_matches_search_plain(inner, lanes):
     assert int(got[5]) == int(want[3].long().sum())
 
 
-@pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
-@pytest.mark.parametrize("inner", [1, 32])
-def test_scan_body_host_build_matches_plain(inner):
-    """(d) The scan kernel's body (fq_scan_lane, suspended and resumed
-    every `inner` steps through its FqLane record) built with g++ against
-    the plain scan path, outer round included."""
+def _host_scan(fm, P, inp, lanes, inner):
+    """The scan kernel's whole chunk on min(lanes, N) lanes, built with g++
+    (fq_scan_host): (n_aln, alns, fb, steps, rounds, busy)."""
     from fastquick_tpu_torch.kernels.build import host_library
 
-    fm, P, inp = _chunk(seed=2, n_reads=200, pool=512, step_cap=768)
-    want = tbs.scan_search(fm, P, PlainLanes(fm, P, 64, **inp), inner)
-    lib = host_library()
+    i32 = torch.int32
+    N = inp["seqs0"].shape[0]
+    seqs8 = inp["seqs0"].to(torch.uint8).contiguous()
+    cols = [inp[k].to(i32).contiguous()
+            for k in ("lens", "md", "use_seed", "n_n")]
+    widths = inp["widths"].clone()
+    seed_w = inp["seed_w"].to(i32).contiguous()
+    alns = torch.zeros((N, tsk.A_MAX, 3), dtype=i32)
+    n_aln, fb, steps = (torch.zeros(N, dtype=i32) for _ in range(3))
+    stats = torch.zeros(2, dtype=torch.long)
     hp = fm.host_params()
     sp = P.to_array()
 
     def p(t):
         return ctypes.c_void_p(t.data_ptr())
 
-    def host_scan(fm_, P_, s, k):
-        assert lib.fq_scan_host(
-            p(fm.kernel_table()), hp.ctypes.data_as(ctypes.c_void_p),
-            sp.ctypes.data_as(ctypes.c_void_p), p(s.seqs8), p(s.lens),
-            p(s.md), p(s.use_seed), p(s.n_n), s.N, p(s.widths),
-            p(s.seed_w), p(s.rec), s.B, p(s.pool), p(s.freel), p(s.heads),
-            p(s.alns), k) == 0
+    assert host_library().fq_scan_host(
+        p(fm.kernel_table()), hp.ctypes.data_as(ctypes.c_void_p),
+        sp.ctypes.data_as(ctypes.c_void_p), p(seqs8), *map(p, cols), N,
+        p(widths), p(seed_w), p(alns), p(n_aln), p(fb), p(steps),
+        min(lanes, N), inner, tsk._n_ids(inp["md"]), p(stats)) == 0
+    return n_aln, alns, fb, steps, int(stats[0]), int(stats[1])
 
-    lanes = ScanLanes(fm, P, 64, **dict(inp, widths=inp["widths"].clone()))
-    got = tbs.scan_search(fm, P, lanes, inner, advance=host_scan)
+
+def _same_scan(got, want):
     for name, a, b in zip(("n_aln", "alns", "fb", "steps"), got, want):
         assert torch.equal(a, b), name
-    assert got[4] == want[4] and int(got[5]) == int(want[5])
+    assert (got[4], int(got[5])) == (want[4], int(want[5])), "rounds, busy"
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
+@pytest.mark.parametrize("lanes", [64, 256])
+@pytest.mark.parametrize("inner", [1, 32])
+def test_scan_body_host_build_matches_plain(inner, lanes):
+    """(d) The scan kernel's whole chunk (fq_scan_advance / flush / refill,
+    the lane record carried across rounds, the refill ids numbered in lane
+    order) built with g++ against the plain scan path: hits, fallbacks,
+    steps, rounds and busy steps."""
+    fm, P, inp = _chunk(seed=2, n_reads=200, pool=512, step_cap=768)
+    want = scan_search(fm, P, PlainLanes(fm, P, lanes, **inp), inner)
+    _same_scan(_host_scan(fm, P, inp, lanes, inner), want)
     assert int(want[0].sum()) > 0 and int((want[2] != 0).sum()) > 0
+    assert want[4] > 1
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
+def test_scan_host_build_more_lanes_than_reads():
+    """A chunk of N = 256 rows (3 reads) asked for 512 lanes runs on N
+    lanes, in the host build and in scan_chunk's plain version alike."""
+    fm, P, inp = _chunk(seed=5, n_reads=3, pool=512, step_cap=768)
+    N = inp["seqs0"].shape[0]
+    want = scan_search(fm, P, PlainLanes(fm, P, N, **inp), 4)
+    _same_scan(_host_scan(fm, P, inp, 2 * N, 4), want)
+    _same_scan(tsk.scan_chunk(fm, P, 2 * N, 4, **inp), want)
+    assert want[4] > 0
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
+def test_scan_host_build_padding_heavy_chunk():
+    """The world of ROADMAP section C: 120 reads padded to 256 rows on 128
+    lanes, where the padding rows outnumber the lanes and the reference's
+    outer round never ends.  The host build ends with the plain loop's
+    rounds and busy steps."""
+    idx = make_idx(seed=4)
+    reads = port_reads(synth_reads(idx, 120, 44))
+    eng = tbs.BatchEngine(port_idx(idx), "cpu", lanes=128, pallas="scan")
+    packed, aux, P = tbs.pack_chunk(reads, GapOpt(), eng.pool,
+                                    kernel="scan")
+    assert packed.shape[0] - len(reads) > eng.lanes
+    inp = tbs.chunk_inputs(eng.dev, torch.from_numpy(packed),
+                           torch.from_numpy(aux), P)
+    want = scan_search(eng.dev, P, PlainLanes(eng.dev, P, 128, **inp), 32)
+    _same_scan(_host_scan(eng.dev, P, inp, 128, 32), want)
+    assert int(want[5]) == int(want[3].long().sum()) > 0
 
 
 def test_kernel_selection(monkeypatch):
@@ -196,8 +246,8 @@ def test_padding_lanes_stay_idle():
     same rounds as on 3 lanes.  On 3 lanes the 253 padding rows outnumber
     the lanes, where the reference's outer round would never end."""
     fm, P, inp = _chunk(seed=5, n_reads=3, pool=512, step_cap=768)
-    many = tbs.scan_search(fm, P, PlainLanes(fm, P, 256, **inp), 4)
-    few = tbs.scan_search(fm, P, PlainLanes(fm, P, 3, **inp), 4)
+    many = scan_search(fm, P, PlainLanes(fm, P, 256, **inp), 4)
+    few = scan_search(fm, P, PlainLanes(fm, P, 3, **inp), 4)
     for a, b in zip(many[:4], few[:4]):
         assert torch.equal(a, b)
     assert many[4] == few[4] > 0

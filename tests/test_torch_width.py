@@ -1,7 +1,8 @@
 """The port's width path against fastquick_tpu's cal_width and the Pallas
 width kernel (interpret mode), on the 300 x 40 world of
 tests/test_search_pallas.py; and the width kernel's per-unit body, built
-for the host with g++, against the plain version."""
+for the host with g++, against the plain version, on that world and on
+the edge batches of testing/width_cases.py."""
 
 import ctypes
 import shutil
@@ -19,6 +20,10 @@ from fastquick_tpu.index.fmindex import FMIndex  # noqa: E402
 from fastquick_tpu.ops import fm as jfm  # noqa: E402
 from fastquick_tpu_torch.ops import fm as tfm  # noqa: E402
 from fastquick_tpu_torch.ops.search_kernels import width  # noqa: E402
+from fastquick_tpu_torch.testing.width_cases import (  # noqa: E402
+    EDGE_LENS,
+    width_edge_batch,
+)
 
 
 @pytest.fixture(scope="module")
@@ -41,7 +46,7 @@ def world():
     sel = (np.arange(M) % 2).astype(np.int32)
     return dict(jdev=jfm.DeviceFM.build(fmf, fmr),
                 tdev=tfm.DeviceFM.build(fmf, fmr, "cpu"), units=units,
-                lens=lens, sel=sel)
+                lens=lens, sel=sel, text=text)
 
 
 def _port_width(w):
@@ -70,14 +75,10 @@ def test_width_matches_width_pallas(world):
     np.testing.assert_array_equal(_port_width(w), want)
 
 
-@pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
-def test_width_body_host_build_matches_plain(world):
+def _host_width(fm, units, sel):
+    """The width kernel's body (width_unit) built with g++: (w, bid)."""
     from fastquick_tpu_torch.kernels.build import host_library
 
-    w = world
-    fm = w["tdev"]
-    units = torch.from_numpy(w["units"].astype(np.uint8))
-    sel = torch.from_numpy(w["sel"])
     M, L = units.shape
     wv = torch.zeros((M, L), dtype=torch.int32)
     bv = torch.zeros_like(wv)
@@ -86,8 +87,35 @@ def test_width_body_host_build_matches_plain(world):
     def p(t):
         return ctypes.c_void_p(t.data_ptr())
 
-    host_library().fq_width_host(p(fm.kernel_table()),
-                                 hp.ctypes.data_as(ctypes.c_void_p),
-                                 p(units), p(sel), M, L, p(wv), p(bv))
+    assert host_library().fq_width_host(
+        p(fm.kernel_table()), hp.ctypes.data_as(ctypes.c_void_p), p(units),
+        p(sel), M, L, p(wv), p(bv)) == 0
+    return wv, bv
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
+def test_width_body_host_build_matches_plain(world):
+    w = world
+    fm = w["tdev"]
+    units = torch.from_numpy(w["units"].astype(np.uint8))
+    sel = torch.from_numpy(w["sel"])
+    wv, bv = _host_width(fm, units, sel)
     want_w, want_b = tfm.cal_width_planes(fm, sel, units)
     assert torch.equal(wv, want_w) and torch.equal(bv, want_b)
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
+@pytest.mark.parametrize("L", EDGE_LENS)
+def test_width_body_host_build_edges(world, L):
+    """Unit lengths around the kernel's tile of 32 positions, 300 units (not
+    a multiple of its block of 128): all-N units, random codes, units that
+    follow the text, with errors, and units whose interval holds the
+    primary row."""
+    fm = world["tdev"]
+    units_np, sel_np = width_edge_batch(world["text"], L, seed=L)
+    units, sel = torch.from_numpy(units_np), torch.from_numpy(sel_np)
+    wv, bv = _host_width(fm, units, sel)
+    want_w, want_b = tfm.cal_width_planes(fm, sel, units)
+    assert torch.equal(wv, want_w) and torch.equal(bv, want_b)
+    # random codes restart buckets within the unit
+    assert int(bv[:, -1].max()) >= min(L, 2)
