@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive fastquick_tpu_torch's ``align --device_qc`` on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # all phases, one card, ~6 minutes
+    python3 chip_smoke.py            # all phases, one card, ~10 minutes
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -22,7 +22,16 @@ Phases (any failure raises and the script exits non-zero):
    launch of the scan kernel and as its plain version, which must agree in
    hits, fallbacks, steps, rounds and busy steps, and both must equal the
    resident kernel at that pool and cap read for read; the kernel's launch
-   and the whole chunk are timed;
+   and the whole chunk are timed.  The resident kernel also runs at chain
+   length 4 (qc_step_full's default: up to 4 exact-walk bases a step,
+   fq_search_chain_kernel, counted as "search_chain") on the same reads,
+   equal to its plain version in hits, fallbacks, steps and pool
+   high-water marks: at a step cap of 256 that binds, with a fallback set
+   other than chain 1's and both chain lengths timed, and at qc_step_full's
+   own pool 256 and step cap 64 L, where most reads overflow the pool
+   (timed: the search_chain entry); and the drand48 kernel draws on
+   65,536 reads of random hit lists (testing/drand48_cases.py), equal to
+   its plain version in the selected words, rows and stream state, timed;
 3. small world: the port's ``index`` + ``align --device_qc`` on
    testing/synthworld.build_synth_pe_world, byte-identical on all 12
    product files to the port's ``align --engine host``, once with the
@@ -37,7 +46,24 @@ Phases (any failure raises and the script exits non-zero):
    (units x codes) and its SW launches (jobs, RL, QL, true cells), and
    both kernels are checked and timed again at those shapes after it.  The
    kernel launch counts are zeroed right before each device run and read
-   right after it.
+   right after it;
+5. program: the one-program QC step (qc_program, ops/qc_full.qc_step_full)
+   in pair mode with drand48 on.  On the small world's files, run_single
+   on the card and on the CPU (the plain versions): every accumulator,
+   every per-pair row field and the product files write_product writes
+   must be identical.  On the production world's files (phase 4's, else
+   built), all 100,000 pairs as one batch of 200,000 reads of L 160 with
+   the k-mer bitmaps on the card: run_with_fill with the resident kernel
+   at qc_full's defaults (pool 256, chain 4, step cap 64 L) and with the
+   scan kernel (chain 1, pool 512, cap 768); after the fill pass both have
+   no fallback left and must agree on every accumulator, n_pcr_dup, every
+   row and every product file.  The exact redo is the native engine's.
+   Each run logs its first pass's fallback, its stages' wall times (the
+   card synced at each boundary), reads a second, its counters and its
+   launches, zeroed right before it.  After each run, every drand48 launch
+   it made is held to the plain version on its own inputs, and the
+   resident run's first-pass search launch to the plain search on 4,096
+   evenly spaced reads of its chunk.
 
 The last two lines of stdout are the kernels line and
 {"ok": true, "device": {...}}, printed only when phases 2-4 all ran
@@ -83,18 +109,36 @@ ALL_OUTPUTS = ("Summary", "DepthDist", "GCDist", "EmpRepDist",
                "EmpCycleDist", "RawInsertSizeDist", "AdjustedInsertSizeDist",
                "SexChromInfo", "Pileup", "vcf", "InsertSizeTable", "bam")
 
-ALL_PHASES = ("kernels", "small", "production")  # after the card phase
+# after the card phase
+ALL_PHASES = ("kernels", "small", "production", "program")
 
 KERNELS = {
     "width": ("fastquick_tpu_torch/csrc/width.cu",
               "fastquick_tpu/ops/search_pallas.py:1603"),
     "search": ("fastquick_tpu_torch/csrc/search.cu",
                "fastquick_tpu/ops/search_pallas.py:773"),
+    # the same Pallas kernel at CH > 1 (its sub-step loop, :1010-1030):
+    # fq_search_chain_kernel, counted as "search_chain"
+    "search_chain": ("fastquick_tpu_torch/csrc/search.cu",
+                     "fastquick_tpu/ops/search_pallas.py:773"),
     "scan": ("fastquick_tpu_torch/csrc/scan.cu",
              "fastquick_tpu/ops/search_pallas.py:154"),
     "sw": ("fastquick_tpu_torch/csrc/sw.cu",
            "fastquick_tpu/ops/sw_pallas.py:52"),
+    # no pallas_call: a lax.scan over the reads
+    "drand48": ("fastquick_tpu_torch/csrc/drand48.cu",
+                "fastquick_tpu/ops/drand48_device.py:167"),
 }
+# the chain-length check's step cap: low enough that some reads reach it
+CHAIN_CAP = 256
+# qc_step_full's search defaults: pool 256, chain 4, step cap 64 L
+QC_POOL, QC_CHAIN, QC_CAP_PER_BASE = 256, 4, 64
+# production reads the program phase's plain search redoes (evenly spaced)
+PROGRAM_SEARCH_CHECK = 4096
+# dependent integer and double operations of one drand48 draw (the LCG's
+# 64-bit multiply-add and mask, the conversion, the double multiply and
+# the compare or truncation)
+OPS_DRAW = 10
 
 
 def log(msg: str) -> None:
@@ -135,6 +179,30 @@ def _pctl(t) -> list:
 def bound(bytes_: float, ops: float) -> tuple[float, str]:
     tb, to = bytes_ / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def search_bound(P, N: int, tab_bytes: int, n_aln, steps: int,
+                 outs: int) -> tuple[float, str]:
+    """The least time of a search of N reads: its inputs (codes, four
+    scalars, the width rows of both strands and of the seeds, the table
+    once), `outs` int32 scalars out per read and the hit rows it emitted
+    (n_aln of them); ~150 operations a step taken."""
+    in_bytes = (N * P.L + 16 * N + 2 * N * (P.L + 1) * 8
+                + 2 * N * (P.SL + 1) * 8 + tab_bytes)
+    out_bytes = 4 * outs * N + 12 * int(n_aln.clamp(0, 48).long().sum())
+    return bound(in_bytes + out_bytes, steps * OPS_SEARCH_STEP_MIN)
+
+
+def same_search(got, want, what: str) -> None:
+    """Raise unless two searches' per-read outputs are equal."""
+    import torch
+
+    names = ("n_aln", "alns", "fb", "steps", "hwm")
+    for name, a, b in zip(names, got, want):
+        if not torch.equal(a, b):
+            bad = (a != b).reshape(a.shape[0], -1).any(1).nonzero()[:5]
+            raise AssertionError(f"{what} in {name}, reads "
+                                 f"{bad.flatten().tolist()}")
 
 
 # ------------------------------------------------------------- phase 1
@@ -234,7 +302,10 @@ def _draw_reads(text, n, read_len, rng):
 
 def phase_kernels(seed: int, dev: str = "cuda", text_len: int = 6_500_000,
                   M: int = 65536, n_reads: int = 4096,
-                  chunk_reads: int = 32768, n_sw: int = 2048) -> dict:
+                  chunk_reads: int = 32768, n_sw: int = 2048,
+                  n_draw: int = 65536) -> dict:
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -303,14 +374,8 @@ def phase_kernels(seed: int, dev: str = "cuda", text_len: int = 6_500_000,
     k_out = resident_search(fm, P, widths=widths0.clone(), hwm=hwm_k, **inp)
     p_out = search_plain(fm, P, widths=widths0.clone(), hwm=hwm_p, **inp)
     torch.cuda.synchronize()
-    for name, a, b in zip(("n_aln", "alns", "fb", "steps", "hwm"),
-                          (*k_out, hwm_k), (*p_out, hwm_p)):
-        if not torch.equal(a, b):
-            bad = (a != b).reshape(a.shape[0], -1).any(1).nonzero()[:5]
-            raise AssertionError(f"search kernel != plain in {name}, reads "
-                                 f"{bad.flatten().tolist()}")
+    same_search((*k_out, hwm_k), (*p_out, hwm_p), "search kernel != plain")
     hwm_cell = _pctl(hwm_k[:len(reads)])
-    N = packed.shape[0]
     n_fb = int((k_out[2][:len(reads)] != 0).sum())
     steps = int(k_out[3].long().sum())
     clones = [widths0.clone() for _ in range(4)]
@@ -320,13 +385,8 @@ def phase_kernels(seed: int, dev: str = "cuda", text_len: int = 6_500_000,
     search_plain(fm, P, widths=widths0.clone(), **inp)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    # what the search must move: its inputs (codes, four scalars, the
-    # width rows of both strands and of the seeds, the table once), three
-    # scalars out per read and the hit rows it emitted (n_aln of them)
-    in_bytes = (N * P.L + 16 * N + 2 * N * (P.L + 1) * 8
-                + 2 * N * (P.SL + 1) * 8 + tab_bytes)
-    out_bytes = 12 * N + 12 * int(k_out[0].clamp(0, 48).long().sum())
-    bms, by = bound(in_bytes + out_bytes, steps * OPS_SEARCH_STEP_MIN)
+    # out per read: n_aln, fb, steps and the pool high-water mark
+    bms, by = search_bound(P, N, tab_bytes, k_out[0], steps, 4)
     res["search"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0,
                          bound_ms=bms, bound_by=by, steps=steps,
                          fallback=n_fb, reads=len(reads), hwm=hwm_cell)
@@ -334,6 +394,13 @@ def phase_kernels(seed: int, dev: str = "cuda", text_len: int = 6_500_000,
         f"{plain_ms:.1f} ms, bound {bms:.3f} ms ({by}), {steps} steps, "
         f"{n_fb} fallback reads, equal (pool high-water marks too); "
         f"high-water mark p50/p99/max {hwm_cell}")
+    chain = chain_case(fm, P, inp, widths0, len(reads))
+    res["search"].update(chain.pop("cap"))
+    res["search_chain"] = chain
+    chain["bound_ms"], chain["bound_by"] = search_bound(
+        P, N, tab_bytes, chain.pop("n_aln"), chain["steps"], 4)
+    log(f"search_chain bound at pool {QC_POOL}, cap {QC_CAP_PER_BASE} L: "
+        f"{chain['bound_ms']:.5f} ms ({chain['bound_by']})")
 
     # ---- scan: the same reads, 1024 lanes x 32 steps, pool 512, cap 768 ----
     lanes, inner = 1024, 32
@@ -354,11 +421,7 @@ def phase_kernels(seed: int, dev: str = "cuda", text_len: int = 6_500_000,
     torch.cuda.synchronize()
     for ref, what in ((p_out, "its plain version"),
                       (r_out, "the resident kernel at pool 512, cap 768")):
-        for name, a, b in zip(("n_aln", "alns", "fb", "steps"), s_out, ref):
-            if not torch.equal(a, b):
-                bad = (a != b).reshape(a.shape[0], -1).any(1).nonzero()[:5]
-                raise AssertionError(f"scan kernel != {what} in {name}, "
-                                     f"reads {bad.flatten().tolist()}")
+        same_search(s_out[:4], ref[:4], f"scan kernel != {what}")
     rounds, busy = s_out[4], int(s_out[5])
     if (rounds, busy) != (p_out[4], int(p_out[5])):
         raise AssertionError(f"scan kernel took {rounds} rounds and {busy} "
@@ -388,8 +451,8 @@ def phase_kernels(seed: int, dev: str = "cuda", text_len: int = 6_500_000,
     torch.cuda.synchronize()
     kernel_ms = [a.elapsed_time(b) for a, b in ev]
     ms = sum(kernel_ms) / len(kernel_ms)
-    out_bytes = 12 * N + 12 * int(s_out[0].clamp(0, 48).long().sum())
-    bms, by = bound(in_bytes + out_bytes, steps * OPS_SEARCH_STEP_MIN)
+    # out per read: n_aln, fb, steps
+    bms, by = search_bound(Ps, N, tab_bytes, s_out[0], steps, 3)
     res["scan"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0,
                        bound_ms=bms, bound_by=by, steps=steps,
                        fallback=n_fb, reads=len(reads), rounds=rounds,
@@ -453,8 +516,141 @@ def phase_kernels(seed: int, dev: str = "cuda", text_len: int = 6_500_000,
     res["sw"]["edge_jobs"] = int(edge[0].shape[0])
     log(f"sw     edge batch ({edge[0].shape[0]} jobs: ql 1-150 around the "
         f"strip of 32, rl 0/1/640, all-N, tied maxima): equal")
+    res["drand48"] = drand48_case(dev, rng, n_draw)
     build.reset_launch_counts()
     return res
+
+
+def chain_case(fm, P, inp, widths0, n: int) -> dict:
+    """The resident kernel at chain length 4 against its plain version, in
+    hits, fallback bits, steps and pool high-water marks: at a step cap
+    that binds (CHAIN_CAP), with its fallback set against chain 1's and
+    both chain lengths timed by CUDA events; and at qc_step_full's own
+    settings (pool 256, step cap 64 L), where most reads overflow the pool.
+    Returns the second check's entry of the kernels line, with the cap
+    check's numbers under "cap" and the hit counts under "n_aln"."""
+    import dataclasses
+
+    import torch
+
+    from fastquick_tpu_torch.ops.search_kernels import (
+        FB_POOL,
+        resident_search,
+        search_plain,
+    )
+
+    def check(Pc, what):
+        hwm_k = torch.zeros(widths0.shape[0] // 2, dtype=torch.int32,
+                            device=widths0.device)
+        hwm_p = torch.zeros_like(hwm_k)
+        k = resident_search(fm, Pc, widths=widths0.clone(), hwm=hwm_k, **inp)
+        t0 = time.perf_counter()
+        p = search_plain(fm, Pc, widths=widths0.clone(), hwm=hwm_p, **inp)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        same_search((*k, hwm_k), (*p, hwm_p),
+                    f"search kernel at chain 4, {what}, != plain")
+        return k, plain_ms
+
+    def timed(Pc):
+        clones = [widths0.clone() for _ in range(4)]
+        return cuda_ms(lambda w: resident_search(fm, Pc, widths=w, **inp), 3,
+                       setup=lambda i: (clones[i + 1],))
+
+    P1 = dataclasses.replace(P, step_cap=CHAIN_CAP)
+    P4 = dataclasses.replace(P1, CH=4)
+    k4, plain_ms = check(P4, f"step cap {CHAIN_CAP}")
+    k1 = resident_search(fm, P1, widths=widths0.clone(), **inp)
+    fb1, fb4 = k1[2][:n] != 0, k4[2][:n] != 0
+    if torch.equal(fb1, fb4):
+        raise AssertionError(f"step cap {CHAIN_CAP} does not bind: chain 1 "
+                             "and 4 fall back on the same reads")
+    both = ~fb1 & ~fb4
+    if not (torch.equal(k1[0][:n][both], k4[0][:n][both])
+            and torch.equal(k1[1][:n][both], k4[1][:n][both])):
+        raise AssertionError("chain 1 and 4 differ in the hits of reads "
+                             "both finish")
+    cap = {f"chain{ch}_ms": timed(Pc) for ch, Pc in ((1, P1), (4, P4))}
+    cap.update(chain_cap=CHAIN_CAP, chain4_plain_ms=plain_ms,
+               chain1_steps=int(k1[3].long().sum()),
+               chain4_steps=int(k4[3].long().sum()),
+               chain1_fallback=int(fb1.sum()), chain4_fallback=int(fb4.sum()),
+               chain1_max_steps=int(k1[3].max()),
+               chain4_max_steps=int(k4[3].max()))
+    log(f"search N={n} at step cap {CHAIN_CAP}: chain 4 kernel "
+        f"{cap['chain4_ms']:.3f} ms (plain {plain_ms:.1f} ms), equal (pool "
+        f"high-water marks too); chain 1 {cap['chain1_ms']:.3f} ms; steps "
+        f"{cap['chain4_steps']} vs {cap['chain1_steps']} (longest read "
+        f"{cap['chain4_max_steps']} vs {cap['chain1_max_steps']}), fallback "
+        f"reads {cap['chain4_fallback']} vs {cap['chain1_fallback']}, hits of "
+        f"the reads both finish equal")
+
+    Pq = dataclasses.replace(P, NP=QC_POOL, step_cap=QC_CAP_PER_BASE * P.L,
+                             CH=QC_CHAIN)
+    kq, plain_ms = check(Pq, f"pool {QC_POOL}, step cap {Pq.step_cap}")
+    fb = kq[2][:n]
+    n_pool = int(((fb & FB_POOL) != 0).sum())
+    if not n_pool:
+        raise AssertionError(f"pool {QC_POOL}: no read overflowed it")
+    out = dict(ms=timed(Pq), plain_ms=plain_ms, max_abs_err=0, reads=n,
+               pool=QC_POOL, step_cap=Pq.step_cap, chain=QC_CHAIN,
+               steps=int(kq[3].long().sum()), max_steps=int(kq[3].max()),
+               fallback=int((fb != 0).sum()), pool_fallback=n_pool,
+               finished=int((fb == 0).sum()), cap=cap, n_aln=kq[0])
+    log(f"search N={n} at qc_step_full's pool {QC_POOL}, chain {QC_CHAIN}, "
+        f"step cap {Pq.step_cap}: kernel {out['ms']:.3f} ms, plain "
+        f"{plain_ms:.1f} ms, equal (pool high-water marks too); "
+        f"{out['steps']} steps (longest read {out['max_steps']}), "
+        f"{out['fallback']} fallback reads ({n_pool} pool overflows), "
+        f"{out['finished']} finished")
+    return out
+
+
+def same_draw(got, want, what: str) -> None:
+    """Raise unless two draws agree in words, rows and final state."""
+    import torch
+
+    for name, a, b in zip(("f0", "row", "state"), got, want):
+        if not torch.equal(a, b):
+            bad = (a != b).nonzero()[:5].flatten().tolist()
+            raise AssertionError(f"{what} in {name}, at {bad}")
+
+
+def drand48_case(dev, rng, n: int) -> dict:
+    """The drand48 kernel against its plain version on n reads of random
+    hit lists; kernel time by CUDA events, the plain version's once."""
+    import torch
+
+    from fastquick_tpu_torch.ops.drand48_device import (
+        aln2seq_draw_scan,
+        best_class,
+        draw_scan_plain,
+        seed_state,
+    )
+    from fastquick_tpu_torch.testing.drand48_cases import random_batch
+
+    n_aln, alns, _ = random_batch(rng, n)
+    na = torch.from_numpy(n_aln).to(dev)
+    al = torch.from_numpy(alns).to(dev)
+    st = torch.from_numpy(seed_state(11)).to(dev)
+    k_out = aln2seq_draw_scan(na, al, st)
+    walk: dict = {}
+    t0 = time.perf_counter()
+    p_out = draw_scan_plain(na, al, st, stats=walk)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    same_draw(k_out, p_out, "drand48 kernel != plain")
+    ms = cuda_ms(lambda: aln2seq_draw_scan(na, al, st), 3)
+    rows = int(best_class(na, al).sum())
+    draws = walk["draws"]
+    # 12 bytes a read (n_aln in, the selected word and row out; the stream
+    # state stays in a register) and each best-class row read once; ~10
+    # dependent operations a draw
+    bms, by = bound(12 * n + 12 * rows, draws * OPS_DRAW)
+    log(f"drand48 N={n}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+        f"{bms:.5f} ms ({by}), {rows} best-class rows, {draws} draws; "
+        f"equal in words, rows and final state")
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=0, bound_ms=bms,
+                bound_by=by, reads=n, rows=rows, draws=draws)
 
 
 def width_case(fm, units, sel, reps: int = 3):
@@ -602,7 +798,8 @@ def phase_small(work: Path, logf) -> dict:
         f"{scan['searched']} {scan['fb_causes']}")
     return dict(reads=w["n_reads"], device=dev, host=host,
                 launches=launches, scan=dict(device=scan,
-                                             launches=scan_launches))
+                                             launches=scan_launches),
+                world=w)
 
 
 def phase_production(work: Path, logf, seed: int, pairs: int,
@@ -688,7 +885,268 @@ def phase_production(work: Path, logf, seed: int, pairs: int,
                 world_s=t_world, sw_launches=sw_shapes,
                 width_launches=width_shapes,
                 scan=dict(device=scan, launches=scan_launches,
-                          reads_per_s=scan_rps, fallback_share=scan_share))
+                          reads_per_s=scan_rps, fallback_share=scan_share),
+                world=w)
+
+
+# ------------------------------------------------------------- phase 5
+
+
+PROGRAM_COUNTERS = ("n_mapped", "n_eligible", "n_pair_reads", "n_pcr_dup",
+                    "pileup_ovf", "n_pair_ovf")
+
+
+def _same_program(a: tuple, b: tuple, what: str) -> None:
+    """Two one-program runs' (stats, rows) identical: every accumulator and
+    row field exactly, the insert-size estimate's floats within 1e-6
+    relative."""
+    import numpy as np
+
+    (sa, ra), (sb, rb) = a, b
+    bad = sorted(set(sa) ^ set(sb)) + sorted(set(ra) ^ set(rb))
+    for k in set(sa) & set(sb):
+        x, y = sa[k].cpu().numpy(), sb[k].cpu().numpy()
+        if k == "_ii":
+            if not np.allclose(x, y, rtol=1e-6, atol=0):
+                bad.append(k)
+        elif x.dtype != y.dtype or not np.array_equal(x, y):
+            bad.append(k)
+    bad += [f"row {k}" for k in set(ra) & set(rb)
+            if not np.array_equal(ra[k], rb[k])]
+    if bad:
+        raise AssertionError(f"{what}: differ in {sorted(bad)}")
+
+
+def _same_files(a: list, b: list, what: str) -> int:
+    names = [[Path(f).name.split(".", 1)[1] for f in x] for x in (a, b)]
+    if names[0] != names[1] or len(a) < 12:
+        raise AssertionError(f"{what}: product files {names[0]} vs "
+                             f"{names[1]}")
+    diff = [Path(x).name for x, y in zip(a, b)
+            if not filecmp.cmp(x, y, shallow=False)]
+    if diff:
+        raise AssertionError(f"{what}: {diff} differ")
+    return len(a)
+
+
+def _stage_line(times: dict) -> str:
+    return ", ".join(f"{k} {v:.3f}s" for k, v in times.items())
+
+
+@contextlib.contextmanager
+def _recording(calls: dict):
+    """Record what qc_step_full hands its drand48 and resident-search
+    wrappers and what they return: every draw in calls["draw"], the first
+    search (its inputs cloned before the kernel edits widths in place) in
+    calls["search"]."""
+    import torch
+
+    from fastquick_tpu_torch.ops import qc_full
+
+    draw, search = qc_full.aln2seq_draw_scan, qc_full.resident_search
+
+    def record_draw(n_aln, alns, state0):
+        args = (n_aln.clone(), alns.clone(),
+                torch.as_tensor(state0, dtype=torch.int32,
+                                device=alns.device).clone())
+        out = draw(n_aln, alns, state0)
+        calls["draw"].append((args, out))
+        return out
+
+    def record_search(fm, P, **inp):
+        first = not calls["search"]
+        args = {k: v.clone() for k, v in inp.items()} if first else None
+        out = search(fm, P, **inp)
+        if first:
+            calls["search"].append((fm, P, args, out))
+        return out
+
+    with mock.patch.object(qc_full, "aln2seq_draw_scan", record_draw), \
+            mock.patch.object(qc_full, "resident_search", record_search):
+        yield
+
+
+def _check_draws(draws: list, name: str) -> list:
+    """Each recorded drand48 launch of a production run against the plain
+    version on the same inputs: words, rows and final state equal."""
+    from fastquick_tpu_torch.ops.drand48_device import draw_scan_plain
+
+    out = []
+    for i, (args, got) in enumerate(draws):
+        walk: dict = {}
+        t0 = time.perf_counter()
+        want = draw_scan_plain(*args, stats=walk)
+        plain_s = time.perf_counter() - t0
+        same_draw(got, want, f"production {name}, drand48 launch {i} != "
+                  "plain")
+        out.append(dict(reads=int(args[0].shape[0]), draws=walk["draws"],
+                        plain_s=plain_s))
+    log(f"program production, {name}: its {len(draws)} drand48 launches "
+        f"equal to plain in words, rows and state ("
+        + ", ".join(f"{c['reads']} reads, {c['draws']} draws, plain "
+                    f"{c['plain_s']:.2f}s" for c in out) + ")")
+    return out
+
+
+def _check_search(call, name: str) -> dict:
+    """The first pass's search launch of a production run against the
+    plain version on an evenly spaced sample of its reads: hits, fallback
+    bits and steps equal (a read's search depends on its own inputs
+    only)."""
+    import torch
+
+    from fastquick_tpu_torch.ops.search_kernels import FB_POOL, search_plain
+
+    fm, P, inp, got = call
+    N = inp["seqs0"].shape[0]
+    n = min(N, PROGRAM_SEARCH_CHECK)
+    idx = torch.arange(n, device=inp["seqs0"].device) * (N // n)
+    both = torch.cat([idx, idx + N])  # width rows: strand 0, then 1
+    sub = {k: v[both] if k in ("widths", "seed_w") else v[idx]
+           for k, v in inp.items()}
+    t0 = time.perf_counter()
+    want = search_plain(fm, P, **sub)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    same_search([t[idx] for t in got], want,
+                f"production {name}, chain {P.CH} search launch != plain")
+    fb = got[2][idx]
+    out = dict(reads=n, of=N, pool=P.NP, chain=P.CH, step_cap=P.step_cap,
+               fallback=int((fb != 0).sum()),
+               pool_fallback=int(((fb & FB_POOL) != 0).sum()),
+               max_steps=int(got[3][idx].max()), plain_s=plain_s)
+    log(f"program production, {name}: first-pass search launch (pool "
+        f"{P.NP}, chain {P.CH}, cap {P.step_cap}) equal to plain on {n} of "
+        f"its {N} reads in hits, fallback bits and steps; {out['fallback']}"
+        f" fallback ({out['pool_fallback']} pool overflows), longest read "
+        f"{out['max_steps']} steps; plain {plain_s:.1f}s")
+    return out
+
+
+def phase_program(work: Path, logf, seed: int, pairs: int,
+                  small_w: dict | None = None,
+                  prod_w: dict | None = None) -> dict:
+    import torch
+
+    from fastquick_tpu_torch import qc_program as qp
+    from fastquick_tpu_torch.align.engine import NativeEngine
+    from fastquick_tpu_torch.kernels import build
+    from fastquick_tpu_torch.testing.synthworld import (
+        build_production_world,
+        build_synth_pe_world,
+    )
+
+    d = work / "program"
+    d.mkdir()
+    res: dict = {}
+    with contextlib.redirect_stderr(logf):
+        if small_w is None:
+            (work / "small").mkdir(exist_ok=True)
+            small_w = build_synth_pe_world(work / "small")
+        if prod_w is None:
+            (work / "prod").mkdir(exist_ok=True)
+            prod_w = build_production_world(work / "prod", seed=seed,
+                                            n_pairs=pairs)
+
+    # ---- the small world: the card against the plain versions ----
+    def small_world(device):
+        with contextlib.redirect_stderr(logf):
+            return qp.world_from_files(
+                small_w["tmp"], small_w["idx_prefix"], small_w["fq1"],
+                small_w["fq2"], "r_1.fq", "r_2.fq", device=device)
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        w = small_world(device)
+        build.reset_launch_counts()
+        times: dict = {}
+        t0 = time.perf_counter()
+        stats, rows = qp.run_single(w, times=times)
+        wall = time.perf_counter() - t0
+        with contextlib.redirect_stderr(logf):
+            files = qp.write_product(str(d / f"small_{device}"), stats, rows,
+                                     w["names"], w)
+        out[device] = dict(run=(stats, rows), files=files, wall_s=wall,
+                           times=times, launches=dict(build.launch_counts))
+        log(f"program small world on {device}: {2 * w['n_pairs']} reads, "
+            f"{wall:.2f}s ({_stage_line(times)}); n_mapped "
+            f"{int(stats['n_mapped'])}, n_fallback "
+            f"{int(stats['n_fallback'])}; launches "
+            f"{out[device]['launches']}")
+    _same_program(out["cuda"]["run"], out["cpu"]["run"],
+                  "small world, cuda vs cpu")
+    n_files = _same_files(out["cuda"]["files"], out["cpu"]["files"],
+                          "small world, cuda vs cpu")
+    log(f"program small world: cuda run equal to the cpu run in every "
+        f"accumulator and row; {n_files} product files byte-identical")
+    res["small"] = {dev: dict(wall_s=o["wall_s"], times=o["times"],
+                              launches=o["launches"])
+                    for dev, o in out.items()}
+
+    # ---- production: one batch of every pair, resident and scan ----
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(logf):
+        world = qp.world_from_files(
+            prod_w["tmp"], prod_w["idx_prefix"], prod_w["fq1"],
+            prod_w["fq2"], "r_1.fq", "r_2.fq", device="cuda", L=160,
+            bitmaps=True)
+    n_reads = 2 * world["n_pairs"]
+    log(f"program production world: {n_reads} reads as one batch (L 160, "
+        f"k-mer bitmaps on the card) loaded in "
+        f"{time.perf_counter() - t0:.1f}s")
+    # the exact redo: the native engine itself (raises if its library is
+    # missing), so the host redo's time is the native engine's
+    engine = NativeEngine(world["idx"])
+    res["redo_engine"] = type(engine).__name__
+    runs = {}
+    for name, opts in (("resident", dict(pool=QC_POOL, chain=QC_CHAIN,
+                                         step_cap=QC_CAP_PER_BASE * 160)),
+                       ("scan", dict(pool=512, chain=1, step_cap=768))):
+        world["opt_args"].update(opts)
+        calls: dict = {"draw": [], "search": []}
+        build.reset_launch_counts()
+        times = {}
+        t0 = time.perf_counter()
+        with _recording(calls):
+            stats, rows, fb1 = qp.run_with_fill(world, engine=engine,
+                                                kernel=name, times=times)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(build.launch_counts)
+        if int(stats["n_fallback"]):
+            raise AssertionError(f"production {name}: "
+                                 f"{int(stats['n_fallback'])} fallback reads "
+                                 "left after the fill pass")
+        with contextlib.redirect_stderr(logf):
+            files = qp.write_product(str(d / f"prod_{name}"), stats, rows,
+                                     world["names"], world)
+        step_s = sum(v for k, v in times.items()
+                     if k not in ("first_pass", "host_redo"))
+        counters = {k: int(stats[k]) for k in PROGRAM_COUNTERS}
+        runs[name] = dict(run=(stats, rows), files=files)
+        res[name] = dict(opts=opts, fallback_first=fb1, wall_s=wall,
+                         step_s=step_s, times=times, launches=launches,
+                         reads_per_s=n_reads / wall,
+                         step_reads_per_s=n_reads / step_s, **counters)
+        log(f"program production, {name} kernel {opts}: first pass "
+            f"{fb1} fallback reads, none after the fill; whole "
+            f"{wall:.2f}s ({n_reads / wall:.0f} reads/s), fill pass "
+            f"{step_s:.3f}s ({n_reads / step_s:.0f} reads/s); stages "
+            f"{_stage_line(times)} (host redo by {res['redo_engine']}); "
+            f"{counters}; launches {launches}")
+        res[name]["draw_checks"] = _check_draws(calls["draw"], name)
+        if calls["search"]:
+            res[name]["search_check"] = _check_search(calls["search"][0],
+                                                      name)
+        del calls
+    _same_program(runs["resident"]["run"], runs["scan"]["run"],
+                  "production, resident vs scan")
+    n_files = _same_files(runs["resident"]["files"], runs["scan"]["files"],
+                          "production, resident vs scan")
+    log(f"program production: resident and scan runs equal in every "
+        f"accumulator, n_pcr_dup and row; {n_files} product files "
+        f"byte-identical")
+    return res
 
 
 # ----------------------------------------------------------------- main
@@ -697,9 +1155,9 @@ def phase_production(work: Path, logf, seed: int, pairs: int,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
-                    help="comma list of kernels,small,production (the card "
-                    "phase always runs); the kernels and ok lines are printed "
-                    "only when all of them ran")
+                    help="comma list of kernels,small,production,program "
+                    "(the card phase always runs); the kernels and ok lines "
+                    "are printed only when all of them ran")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--pairs", type=int, default=100_000,
                     help="read pairs of the production world")
@@ -731,16 +1189,25 @@ def main() -> int:
             if "production" in phases:
                 result["production"] = phase_production(
                     work, logf, args.seed, args.pairs)
+            if "program" in phases:
+                result["program"] = phase_program(
+                    work, logf, args.seed, args.pairs,
+                    result.get("small", {}).get("world"),
+                    result.get("production", {}).get("world"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
-        (OUT / "result.json").write_text(json.dumps(result, indent=1))
+        (OUT / "result.json").write_text(json.dumps(result, indent=1,
+                                                   default=str))
 
     if set(ALL_PHASES) - set(phases):
         # the kernels and ok lines carry numbers of every phase
         log(f"partial run ({args.phases}): no kernels or ok line")
         return 0
     prod = result["production"]
-    launches = dict(prod["launches"], scan=prod["scan"]["launches"]["scan"])
+    program = result["program"]["resident"]["launches"]
+    launches = dict(prod["launches"], scan=prod["scan"]["launches"]["scan"],
+                    search_chain=program["search_chain"],
+                    drand48=program["drand48"])
     missing = [k for k in KERNELS if not launches.get(k)]
     if missing:
         raise AssertionError(f"main path launched no {missing} kernel")

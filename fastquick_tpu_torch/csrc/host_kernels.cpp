@@ -1,11 +1,13 @@
 // Host (g++) build of the kernels' bodies, for the CPU tests: the same
-// width_unit / fq_resident_read / fq_scan_* round pieces / sw_lane_step
-// code that nvcc compiles into width.cu, search.cu, scan.cu and sw.cu,
-// with the kernels' argument layouts and their order of evaluation
-// emulated serially.  Never used on the product path.
+// width_unit / fq_resident_read / fq_scan_* round pieces / sw_lane_step /
+// fq_drand_read code that nvcc compiles into width.cu, search.cu,
+// scan.cu, sw.cu and drand48.cu, with the kernels' argument layouts and
+// their order of evaluation emulated serially.  Never used on the product
+// path.
 #include <algorithm>
 #include <vector>
 
+#include "drand48_body.cuh"
 #include "search_body.cuh"
 #include "sw_body.cuh"
 #include "width_body.cuh"
@@ -38,7 +40,7 @@ extern "C" int fq_width_host(const int32_t* tab, const int32_t* fm_hp,
 // The resident kernel's reads in the order order[0..N), on kThreads
 // workspaces taken in turn, their bucket heads interleaved as in the
 // kernel's shared memory; each workspace is reused from read to read
-// without clearing.
+// without clearing.  A chain length CH > 1 runs the chain kernel's body.
 extern "C" int fq_search_host(const int32_t* tab, const int32_t* fm_hp,
                               const int32_t* sp, const uint8_t* seqs,
                               const int32_t* lens, const int32_t* md,
@@ -59,7 +61,10 @@ extern "C" int fq_search_host(const int32_t* tab, const int32_t* fm_hp,
     const int t = x % kThreads;
     const FqWork w = {pool.data() + t * P.NP, freel.data() + t * P.NP,
                       heads.data() + t, nullptr, kThreads};
-    fq_resident_read(fm, P, ck, order[x], w, out);
+    if (P.CH > 1)
+      fq_resident_read<true>(fm, P, ck, order[x], w, out);
+    else
+      fq_resident_read<false>(fm, P, ck, order[x], w, out);
   }
   return 0;
 }
@@ -174,5 +179,21 @@ extern "C" int fq_sw_host(const uint8_t* refs, const uint8_t* qs,
     out[4 * b + 2] = bj[0];
     out[4 * b + 3] = 0;
   }
+  return 0;
+}
+
+// The drand48 kernel's walk (drand48.cu's fq_drand48_launch arguments):
+// the batch's reads in order on one stream, each read's first row read
+// from its hit rows as the kernel reads it from shared memory.
+extern "C" int fq_drand48_host(const int32_t* n_aln, const int32_t* alns,
+                               int N, const int32_t* state_in, int32_t* f0,
+                               int32_t* row, int32_t* state_out) {
+  uint64_t x = fq_drand_load(state_in);
+  for (int r = 0; r < N; ++r) {
+    const int32_t* rows = alns + (int64_t)r * FQ_DRAND_A_MAX * 3;
+    fq_drand_read(x, fq_drand_best(rows, n_aln[r]), rows, rows, f0 + r,
+                  row + r);
+  }
+  fq_drand_store(x, state_out);
   return 0;
 }

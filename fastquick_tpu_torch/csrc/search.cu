@@ -25,6 +25,9 @@
 //   their count and bucket check come before any push and the pushes loop
 //   over the children that exist (no local-memory child array);
 // - one thread a read, in blocks of 128;
+// - a chain length CH > 1 (bases of the exact walk a step) runs as a second
+//   kernel, fq_search_chain_kernel, so the CH = 1 kernel compiles to the
+//   same code as before the chain length was added;
 // - each thread's 128 bucket heads in shared memory, interleaved over the
 //   block's threads so a warp's accesses fall in distinct banks; its pool
 //   and free stack are a slab per read in global memory.  A level of
@@ -40,23 +43,39 @@
 static const size_t kSearchSmem =
     (size_t)FQ_SEARCH_THREADS * sizeof(int16_t) * FQ_NBUCK;
 
-__global__ void __launch_bounds__(FQ_SEARCH_THREADS)
-    fq_search_kernel(FmView fm, SearchParams P, FqChunk ck, FqSlot* pool,
-                     uint16_t* freel, FqOut out) {
+template <bool kChain>
+__device__ __forceinline__ void fq_search_block(const FmView& fm,
+                                                const SearchParams& P,
+                                                const FqChunk& ck,
+                                                FqSlot* pool, uint16_t* freel,
+                                                const FqOut& out) {
   extern __shared__ int16_t fq_heads[];
   const int t = threadIdx.x;
   const int rid = blockIdx.x * FQ_SEARCH_THREADS + t;
   if (rid >= ck.N) return;
   const FqWork w = {pool + (int64_t)rid * P.NP, freel + (int64_t)rid * P.NP,
                     fq_heads + t, nullptr, FQ_SEARCH_THREADS};
-  fq_resident_read(fm, P, ck, rid, w, out);
+  fq_resident_read<kChain>(fm, P, ck, rid, w, out);
+}
+
+__global__ void __launch_bounds__(FQ_SEARCH_THREADS)
+    fq_search_kernel(FmView fm, SearchParams P, FqChunk ck, FqSlot* pool,
+                     uint16_t* freel, FqOut out) {
+  fq_search_block<false>(fm, P, ck, pool, freel, out);
+}
+
+__global__ void __launch_bounds__(FQ_SEARCH_THREADS)
+    fq_search_chain_kernel(FmView fm, SearchParams P, FqChunk ck,
+                           FqSlot* pool, uint16_t* freel, FqOut out) {
+  fq_search_block<true>(fm, P, ck, pool, freel, out);
 }
 
 // The share of each SM's unified L1/shared memory to give shared memory
 // for `blocks` blocks: what the blocks an SM will hold need (1 KB a block
 // is the system's), so the rest stays L1 cache for the width rows, the
 // pool slabs and the FM table rows.
-static cudaError_t fq_search_carveout(int blocks) {
+template <typename K>
+static cudaError_t fq_search_carveout(K kernel, int blocks) {
   int dev = 0, sms = 0, smem_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -68,7 +87,7 @@ static cudaError_t fq_search_carveout(int blocks) {
   const size_t per_sm = (blocks + sms - 1) / sms;
   const size_t need = per_sm * (kSearchSmem + 1024);
   const int pct = (int)((100 * need + smem_sm - 1) / smem_sm);
-  return cudaFuncSetAttribute(fq_search_kernel,
+  return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               pct < 100 ? pct : 100);
 }
@@ -77,7 +96,7 @@ static cudaError_t fq_search_carveout(int blocks) {
 // widths: (2N, L+1, 2) int32 (strand-0 rows first), updated in place;
 // seed_w: (2N, SL+1, 2); pool: (N, NP) slots of 4 int32; freel: (N, NP)
 // uint16; alns: (N, 48, 3) int32, zeroed; outputs n_aln/fb/steps/hwm:
-// (N,).  sp: SearchParams host array.
+// (N,).  sp: SearchParams host array; its chain length CH picks the kernel.
 extern "C" int fq_search_launch(
     const int32_t* tab, const int32_t* fm_hp, const int32_t* sp,
     const uint8_t* seqs, const int32_t* lens, const int32_t* md,
@@ -87,14 +106,14 @@ extern "C" int fq_search_launch(
     void* stream) {
   if (N > 0) {
     const int blocks = (N + FQ_SEARCH_THREADS - 1) / FQ_SEARCH_THREADS;
-    const cudaError_t e = fq_search_carveout(blocks);
+    const SearchParams P = search_params(sp);
+    const auto kernel = P.CH > 1 ? fq_search_chain_kernel : fq_search_kernel;
+    const cudaError_t e = fq_search_carveout(kernel, blocks);
     if (e != cudaSuccess) return (int)e;
     const FqChunk ck = {seqs, lens, md, use_seed, n_n, N, widths, seed_w};
     const FqOut out = {alns, n_aln, fb, steps, hwm};
-    fq_search_kernel<<<blocks, FQ_SEARCH_THREADS, kSearchSmem,
-                       (cudaStream_t)stream>>>(
-        fm_view(tab, fm_hp), search_params(sp), ck, (FqSlot*)pool,
-        (uint16_t*)freel, out);
+    kernel<<<blocks, FQ_SEARCH_THREADS, kSearchSmem, (cudaStream_t)stream>>>(
+        fm_view(tab, fm_hp), P, ck, (FqSlot*)pool, (uint16_t*)freel, out);
   }
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,9 @@
 //   buckets finds the lowest one;
 // - up to 9 children per expansion in C push order (insertion, deletions
 //   c = 0..3, mismatches j = 1..4 with the exact-match child last);
-// - the bwt_match_exact_alt walk in a chain register, one base per step;
+// - the bwt_match_exact_alt walk in a chain register, up to CH bases a step
+//   (the chain length of the reference's resident kernel; the step cap
+//   counts steps, so CH changes which reads reach it);
 // - top2 cutoffs, at most A_MAX recorded hits and gap_shadow on the hit
 //   strand's width row;
 // - the per-read step cap counted as the lockstep path counts it (a step
@@ -46,6 +48,7 @@ struct SearchParams {
   int NP;  // pool slots per read (< 32768: the next link is 15 bits)
   int step_cap, s_mm, s_gapo, s_gape, max_gapo, max_gape, indel_end_skip,
       max_del_occ, max_entries, max_top2, max_seed_diff;
+  int CH;  // chain length: exact-walk bases a step (>= 1)
 };
 
 FQ_HD SearchParams search_params(const int32_t* p) {
@@ -54,6 +57,7 @@ FQ_HD SearchParams search_params(const int32_t* p) {
   P.s_mm = p[4]; P.s_gapo = p[5]; P.s_gape = p[6]; P.max_gapo = p[7];
   P.max_gape = p[8]; P.indel_end_skip = p[9]; P.max_del_occ = p[10];
   P.max_entries = p[11]; P.max_top2 = p[12]; P.max_seed_diff = p[13];
+  P.CH = p[14];
   return P;
 }
 
@@ -275,13 +279,47 @@ FQ_HD void fq_push(FqLane& s, const FqWork& w, int NP, FqSlot e, int b,
   ++s.n_entries;
 }
 
+// Bases 2..CH of a step's exact walk (the sub-step loop of the reference's
+// resident kernel): while the walk goes on, one more base, each with the
+// rank queries of its interval's two bounds.  Returns whether the walk
+// reached the read's end (a hit); clears ch_on when it ends either way.
+FQ_HD bool fq_chain_more(FqLane& s, const FmView& fm, const SearchParams& P,
+                         const FqRead& r) {
+  int* ch = s.ch;
+  for (int t = 1; t < P.CH && s.ch_on; ++t) {
+    const int a = ch[3], sel = 1 - a;
+    const int base = fq_seq_at(r.seq0, a, fq_clamp(ch[2] - 1, 0, P.L - 1));
+    int32_t row_k[12], row_l[12];
+    const int rem_k = fm_load(fm, sel, ch[0] - 1, row_k);
+    const int rem_l = fm_load(fm, sel, ch[1], row_l);
+    const int c = fq_clamp(base, 0, 3);
+    const int L2c = fm_L2(fm, sel, c);
+    const int nk = L2c + fm_count(row_k, rem_k, c) + 1;
+    const int nl = L2c + fm_count(row_l, rem_l, c);
+    if (base > 3 || nk > nl) {
+      s.ch_on = 0;
+      return false;
+    }
+    ch[0] = nk;
+    ch[1] = nl;
+    ch[2] -= 1;
+    if (ch[2] == 0) {
+      s.ch_on = 0;
+      return true;
+    }
+  }
+  return false;
+}
+
 // One step of a read that is not done: pop (or one chain base), hits,
 // expansion.  A step that ends the search sets `done` and is not counted;
 // the per-read step cap counts the others.  Whatever path a read takes,
 // the step starts its memory reads in two rounds: the popped entry, then
 // one batch (its width and seed-width rows, the two FM table rows and the
 // read base), so the paths of a warp's diverged reads wait on the same
-// loads.
+// loads.  kChain compiles the walk's further bases (P.CH > 1) in; without
+// it a step walks one base, whatever P.CH says.
+template <bool kChain = false>
 FQ_HD void fq_lane_step(FqLane& s, const FmView& fm, const SearchParams& P,
                         const FqRead& r, const FqWork& w) {
   const int n = fm.n, NP = P.NP, L = P.L, SL = P.SL;
@@ -372,7 +410,7 @@ FQ_HD void fq_lane_step(FqLane& s, const FmView& fm, const SearchParams& P,
   const bool start_chain = alive && i > 0 && m == 0;
   const bool expand = alive && !hit_i0 && !start_chain;
 
-  // ---- exact walk (bwt_match_exact_alt), one base per step ----
+  // ---- exact walk (bwt_match_exact_alt), up to CH bases a step ----
   bool ch_hit = false;
   if (work_chain || start_chain) {
     const int ccl = fq_clamp(base, 0, 3);
@@ -390,6 +428,7 @@ FQ_HD void fq_lane_step(FqLane& s, const FmView& fm, const SearchParams& P,
       ch[6] = n_gape;
       ch[7] = ldp;
     }
+    if (kChain && s.ch_on) ch_hit = fq_chain_more(s, fm, P, r);
   } else {
     s.ch_on = 0;
   }
@@ -546,7 +585,9 @@ struct FqOut {
 };
 
 // The whole search of chunk read `rid` in workspace w (the resident
-// kernel's body; the read's hit rows are its rows of o.alns).
+// kernel's body; the read's hit rows are its rows of o.alns).  kChain as
+// for fq_lane_step.
+template <bool kChain>
 FQ_HD void fq_resident_read(const FmView& fm, const SearchParams& P,
                             const FqChunk& c, int rid, FqWork w,
                             const FqOut& o) {
@@ -554,7 +595,7 @@ FQ_HD void fq_resident_read(const FmView& fm, const SearchParams& P,
   w.alns = o.alns + (int64_t)rid * FQ_A_MAX * 3;
   FqLane s;
   fq_lane_init(s, P, fm.n, r, c.n_n[rid], w);
-  while (!s.done) fq_lane_step(s, fm, P, r, w);
+  while (!s.done) fq_lane_step<kChain>(s, fm, P, r, w);
   o.n_aln[rid] = s.n_aln;
   o.fb[rid] = s.overflow;
   o.steps[rid] = s.steps;

@@ -34,7 +34,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 GXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
 
-launch_counts = {"width": 0, "search": 0, "scan": 0, "sw": 0}
+# "search_chain": the resident search kernel's chain-length build (CH > 1)
+launch_counts = {"width": 0, "search": 0, "search_chain": 0, "scan": 0,
+                 "sw": 0, "drand48": 0}
 build_info: dict = {}
 
 _lock = threading.Lock()
@@ -137,6 +139,8 @@ def cuda_library() -> ctypes.CDLL:
             lib.fq_scan_max_lanes.argtypes = []
             lib.fq_sw_launch.restype = _I
             lib.fq_sw_launch.argtypes = [_P] * 4 + [_I] * 3 + [_P] * 2
+            lib.fq_drand48_launch.restype = _I
+            lib.fq_drand48_launch.argtypes = [_P, _P, _I] + [_P] * 5
             _cuda_lib = lib
         return _cuda_lib
 
@@ -161,6 +165,8 @@ def host_library() -> ctypes.CDLL:
                                          + [_I] * 3 + [_P])
             lib.fq_sw_host.restype = _I
             lib.fq_sw_host.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+            lib.fq_drand48_host.restype = _I
+            lib.fq_drand48_host.argtypes = [_P, _P, _I] + [_P] * 4
             _host_lib = lib
         return _host_lib
 

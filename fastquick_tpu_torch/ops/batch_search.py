@@ -145,22 +145,35 @@ def pack_chunk(todo, opt: GapOpt, pool: int, step_cap: int = 0,
 
 def chunk_inputs(fm: DeviceFM, packed: torch.Tensor, aux: torch.Tensor,
                  P: SearchParams) -> dict:
-    """Device inputs of the search kernel for one chunk: unpacked codes,
-    per-read scalars and the width rows of both strands of every read and
-    of its seed (two width-kernel launches).
+    """Device inputs of the search kernel for one chunk (read_inputs) from
+    its packed form.
 
     packed: (Npad, L/2) uint8 nibble pairs of reversed codes (lo = even
     position); aux: (Npad, 3) int32 [len, md, use_seed]."""
     pk8 = packed.long()
     seqs0 = torch.stack([pk8 & 15, (pk8 >> 4) & 15], 2).reshape(
         pk8.shape[0], -1)
+    return read_inputs(fm, seqs0, aux[:, 0].long(), aux[:, 1].long(),
+                       aux[:, 2] != 0, P)
+
+
+def read_inputs(fm: DeviceFM, seqs0: torch.Tensor, lens: torch.Tensor,
+                md: torch.Tensor, use_seed: torch.Tensor,
+                P: SearchParams) -> dict:
+    """Device inputs of the search kernel for N reads: their codes and
+    per-read scalars and the width rows of both strands of every read and
+    of its seed (two width-kernel launches).
+
+    seqs0: (N, L) reversed read codes (4 = N / padding); lens, md: (N,)
+    (md < 0 marks a row the search skips); use_seed: (N,) bool."""
     N, L = seqs0.shape
     assert L == P.L, (L, P.L)
-    lens, md = aux[:, 0].long(), aux[:, 1].long()
-    use_seed = aux[:, 2] != 0
+    seqs0 = seqs0.long()
+    lens, md = lens.long(), md.long()
     dev = seqs0.device
     seq1 = torch.where(seqs0 < 4, 3 - seqs0, seqs0)
     units = torch.cat([seqs0, seq1])  # (2N, L): strand-0 rows first
+    del seq1
     sel2 = torch.cat([torch.zeros(N, dtype=torch.int32, device=dev),
                       torch.ones(N, dtype=torch.int32, device=dev)])
     lens2 = torch.cat([lens, lens])
@@ -171,7 +184,9 @@ def chunk_inputs(fm: DeviceFM, packed: torch.Tensor, aux: torch.Tensor,
     seed_units = torch.where(use_seed[:, None].repeat(2, 1),
                              units.gather(1, spos.repeat(2, 1)), 4)
     wv, bv = width(fm, units, sel2)
+    del units
     widths = width_finalize(wv, bv, lens2)
+    del wv, bv
     swv, sbv = width(fm, seed_units, sel2)
     seed_w = width_finalize(swv, sbv, torch.full_like(lens2, SL))
     n_n = ((seqs0 > 3) & (torch.arange(L, device=dev)[None, :]

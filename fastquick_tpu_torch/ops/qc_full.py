@@ -1,0 +1,681 @@
+"""Device full QC step: inexact search + the complete StatCollector
+accumulator set in one step over a read batch.
+
+Counterpart of fastquick_tpu/ops/qc_full.py (single device; the mesh
+wrapper is a later slice).  The reference's align+stats core
+(src/StatCollector.cpp AddSingleAlignment :424-621 and the accumulator
+fields of src/StatCollector.h:70-119) as one program:
+
+  k-mer filter -> width + inexact FM search (the CUDA width and resident
+  search kernels, or the scan kernel) -> SE hit selection (the drand48
+  reservoir draw, a CUDA kernel) -> approx mapQ -> SA positions ->
+  [paired-end: isize inference, pairing, pair status] -> per-base
+  accumulation over the covered (B, L) grid and marker pileups in read
+  order.
+
+Accumulators produced (integer tensors, int32 as in the reference):
+
+  dense site space (S,):  depth, q20, q30
+  histograms:             emp_rep/mis_emp_rep (256), emp_cycle/
+                          mis_emp_cycle (256)
+  marker pileups (M,CAP): packed per-marker entries (base/qual/mapq/
+                          strand/cycle) in global read order
+  counters:               n_reads, n_filtered, n_mapped, n_eligible,
+                          n_base_mapped, n_gapped, n_fallback, n_xy,
+                          pileup_ovf
+
+Semantics notes (as in the reference package):
+  - hit selection runs the reference's drand48 reservoir draw when
+    opt_args["drand48"] is set; otherwise deterministic first-best-hit.
+  - only ungapped primary hits feed the per-base accumulators.
+  - reads the search kernel could not finish (pool/step caps) are counted
+    in n_fallback and excluded, unless `fb_fill` carries their host-exact
+    hit lists (qc_program.run_with_fill).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..align.opts import G_LOG_N
+from .drand48_device import aln2seq_draw_scan, seed_state
+from .fm import DeviceFM
+from .kmer import filter_reads
+from .pe_device import (
+    expand_occurrences,
+    infer_isize_from_hist,
+    isize_hist_local,
+    pair_status,
+    pairing_sweep,
+)
+from .search_kernels import A_MAX, SearchParams, resident_search, scan_chunk
+from .batch_search import read_inputs
+from .site_tables import SiteTables, build_site_tables
+
+__all__ = ["PILEUP_CAP", "SiteTables", "build_site_tables", "unpack_entry",
+           "synthetic_site_tables", "ragged_unreverse", "se_select",
+           "pack_host_hits", "pack_pe_fill", "qc_step_full",
+           "count_pcr_dups", "local_pileup_counts"]
+
+PILEUP_CAP = 64  # per-marker pileup slots (device tensor width)
+_i32 = torch.int32
+_i64 = torch.long
+
+
+# packed pileup entry: present(1) | base(3) | qual(7) | mapq(7) |
+# strand(1) | cycle(10)  (cycle < 1024)
+def _pack_entry(base, qual, mapq, strand, cycle):
+    return (1 | (base << 1) | (qual << 4) | (mapq << 11)
+            | (strand << 18) | (cycle << 19))
+
+
+def unpack_entry(v: np.ndarray):
+    """Host-side unpack -> (base, qual, mapq, strand, cycle)."""
+    v = np.asarray(v)
+    return ((v >> 1) & 7, (v >> 4) & 127, (v >> 11) & 127,
+            (v >> 18) & 1, (v >> 19) & 1023)
+
+
+def synthetic_site_tables(text: np.ndarray, n_markers: int = 8,
+                          flank: int = 250, seed: int = 0,
+                          device: str | torch.device = "cpu") -> SiteTables:
+    """Standalone tables over a synthetic text (tests / entry): markers
+    evenly spaced, each with a +/-flank in-region window, every position
+    of which is a dense site; every 3rd site dbsnp.  `seed` is unused,
+    as in the reference."""
+    n = len(text)
+    mpos = np.linspace(flank, n - flank - 1, n_markers).astype(np.int64)
+    site_idx = np.full(n + 1, -1, np.int32)
+    marker_id = np.full(n + 1, -1, np.int32)
+    nxt = 0
+    for mi, mp in enumerate(mpos):
+        span = np.arange(mp - flank, mp + flank + 1)
+        fresh = site_idx[span] < 0
+        site_idx[span[fresh]] = nxt + np.arange(int(fresh.sum()))
+        nxt += int(fresh.sum())
+        marker_id[mp] = mi
+    S = nxt
+    is_xy = np.zeros(n + 1, bool)
+    is_xy[: n // 8] = True
+    contig_id = np.full(n + 1, -1, np.int32)
+    bounds = np.linspace(0, n, n_markers + 1).astype(np.int64)
+    for mi in range(n_markers):
+        contig_id[bounds[mi]:bounds[mi + 1]] = mi
+    return SiteTables.from_numpy(
+        site_idx, marker_id, np.concatenate([text.astype(np.int32), [4]]),
+        (np.arange(S) % 3) == 0, is_xy, contig_id, bounds[:-1],
+        np.diff(bounds), S, n_markers, device)
+
+
+def _approx_mapq(c1, c2, mm_eq_max):
+    """bwa_approx_mapQ (bwase.c:102-111), vectorized."""
+    g = torch.tensor(G_LOG_N, dtype=_i64, device=c2.device)[c2.clamp(0, 255)]
+    q = torch.where(c2 == 0, 37, torch.where(23 < g, 0, 23 - g))
+    q = torch.where(mm_eq_max, 25, q)
+    q = torch.where(c1 > 1, 0, q)
+    return torch.where(c1 == 0, 23, q)
+
+
+def ragged_unreverse(arr: torch.Tensor, lens: torch.Tensor,
+                     fill: int = 4) -> torch.Tensor:
+    """Row-wise arr[b, lens[b]-1-j] (undo bwa's stored reversal with
+    per-row lengths)."""
+    B, L = arr.shape
+    idx = lens.long()[:, None] - 1 - torch.arange(L, device=arr.device)[None]
+    out = arr.gather(1, idx.clamp(0, L - 1))
+    return torch.where(idx >= 0, out, fill)
+
+
+def se_select(n_aln, alns, draw=None):
+    """SE selection from the kernel's ordered hit list (packed rows
+    [mm|go<<6|ge<<12|a<<18|score<<19, k, l]): best class widths ->
+    (mapped, strand, row, c1, c2, n_mm, n_gapo, n_gape).  c1/c2 match
+    bwa_aln2seq_core.  The within-class pick is the reference's drand48
+    reservoir draw when `draw` = (f0_sel, row_sel) from
+    ops/drand48_device.aln2seq_draw_scan is given; otherwise the
+    deterministic first best hit at interval offset 0."""
+    A = alns.shape[1]
+    n_aln = n_aln.long()
+    used = torch.arange(A, device=alns.device)[None, :] < n_aln[:, None]
+    a0 = alns[:, :, 0].long()
+    score = (a0 >> 19) & 127
+    width = torch.where(used, alns[:, :, 2].long() - alns[:, :, 1] + 1, 0)
+    best = torch.where(n_aln > 0, score[:, 0], -1)
+    in_best = used & (score == best[:, None])
+    c1 = torch.where(in_best, width, 0).sum(1)
+    c2 = torch.where(used & ~in_best, width, 0).sum(1)
+    mapped = n_aln > 0
+    if draw is not None:
+        f0, row = draw[0].long(), draw[1].long()
+    else:
+        f0, row = a0[:, 0], alns[:, 0, 1].long()
+    return (mapped, (f0 >> 18) & 1, row, c1, c2,
+            f0 & 63, (f0 >> 6) & 63, (f0 >> 12) & 63)
+
+
+def _pileup_ranks(mk_flat: torch.Tensor, valid: torch.Tensor):
+    """Arrival rank of each candidate within its marker, in flattened
+    (read-major) order == global read order within the batch."""
+    K = mk_flat.shape[0]
+    dev = mk_flat.device
+    keys = torch.where(valid, mk_flat.long(), 0x3FFFFFFF)
+    sk, order = torch.sort(keys, stable=True)
+    is_start = torch.ones(K, dtype=torch.bool, device=dev)
+    is_start[1:] = sk[1:] != sk[:-1]
+    iota = torch.arange(K, device=dev)
+    start_pos = torch.cummax(torch.where(is_start, iota, 0), 0).values
+    ranks = torch.empty(K, dtype=_i32, device=dev)
+    ranks[order] = (iota - start_pos).to(_i32)
+    return ranks
+
+
+def pack_host_hits(reads, rows_idx, B, A_MAX_=A_MAX):
+    """Pack host-engine hit lists into the kernel's (B, A_MAX, 3) form
+    for `qc_step_full(fb_fill=...)`: fb_n[b] = -1 marks rows without a
+    fill; packed rows are [mm|go<<6|ge<<12|a<<18|score<<19, k, l] in the
+    engine's recording order (identical to the kernel's)."""
+    fb_n = np.full(B, -1, np.int32)
+    fb_rows = np.zeros((B, A_MAX_, 3), np.int32)
+    for p, b in zip(reads, rows_idx):
+        fb_n[b] = min(len(p.aln), A_MAX_)
+        for j, a in enumerate(p.aln[:A_MAX_]):
+            fb_rows[b, j, 0] = (a.n_mm | (a.n_gapo << 6) | (a.n_gape << 12)
+                                | (a.a << 18) | (a.score << 19))
+            fb_rows[b, j, 1] = a.k
+            fb_rows[b, j, 2] = a.l
+    return fb_n, fb_rows
+
+
+def pack_pe_fill(pairs, pair_idx, P):
+    """Pack host-rescued/refined pair ends for qc_step_full(pe_fill=...).
+
+    pairs: [(p0, p1)] Read objects AFTER align.pe.bwa_paired_sw (and
+    refine); pair_idx: their pair-row indices in the device batch.  The
+    device pair statuses and accumulators then carry the post-rescue/
+    refine positions."""
+    from ..align.dp import FROM_D, FROM_M, FROM_S
+    from ..align.pe import BWA_TYPE_NO_MATCH, SAM_FPP
+
+    fill = {"mask": np.zeros(P, np.int32)}
+    for f in ("pos", "strand", "mapq", "seq_q", "n_mm", "n_gapo",
+              "n_gape", "proper", "mapped", "cl_l", "cl_r", "span"):
+        fill[f + "0"] = np.zeros(P, np.int32)
+        fill[f + "1"] = np.zeros(P, np.int32)
+    for (p0, p1), i in zip(pairs, pair_idx):
+        fill["mask"][i] = 1
+        for j, p in ((0, p0), (1, p1)):
+            fill[f"pos{j}"][i] = p.pos
+            fill[f"strand{j}"][i] = p.strand
+            fill[f"mapq{j}"][i] = p.mapQ
+            fill[f"seq_q{j}"][i] = p.seQ
+            fill[f"n_mm{j}"][i] = p.n_mm
+            fill[f"n_gapo{j}"][i] = p.n_gapo
+            fill[f"n_gape{j}"][i] = p.n_gape
+            fill[f"proper{j}"][i] = 1 if (p.extra_flag & SAM_FPP) else 0
+            fill[f"mapped{j}"][i] = 1 if p.type != BWA_TYPE_NO_MATCH \
+                else 0
+            # soft-clip widths (rescued ends): the host collector's
+            # pos - cl_left insert arithmetic + no-clip dup gate
+            fill[f"span{j}"][i] = p.len
+            if p.cigar:
+                if p.cigar[0][0] == FROM_S:
+                    fill[f"cl_l{j}"][i] = p.cigar[0][1]
+                if p.cigar[-1][0] == FROM_S:
+                    fill[f"cl_r{j}"][i] = p.cigar[-1][1]
+                fill[f"span{j}"][i] = sum(
+                    ln for op, ln in p.cigar if op in (FROM_M, FROM_D))
+    return fill
+
+
+class _Stages:
+    """Adds each stage's wall time (s) to `times` under its name; the card
+    is synced at every stage boundary so that a stage's kernels count in
+    it.  Does nothing when times is None."""
+
+    def __init__(self, times: dict | None, dev: torch.device):
+        self.times, self.dev = times, dev
+        self.t = self._now()
+
+    def _now(self) -> float:
+        if self.times is not None and self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        return time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        if self.times is None:
+            return
+        t = self._now()
+        self.times[name] = self.times.get(name, 0.0) + t - self.t
+        self.t = t
+
+
+def _search_params(opt_args: dict, L: int) -> SearchParams:
+    """The search parameters qc_step_full takes from opt_args (the
+    reference's defaults: pool 256, chain 4, step cap 64 * L)."""
+    return SearchParams(
+        L=L, SL=int(opt_args.get("seed_len", 32)),
+        NP=int(opt_args.get("pool", 256)),
+        step_cap=int(opt_args.get("step_cap", 64 * L)), s_mm=3, s_gapo=11,
+        s_gape=4, max_gapo=int(opt_args.get("max_gapo", 1)),
+        max_gape=int(opt_args.get("max_gape", 6)), indel_end_skip=5,
+        max_del_occ=10, max_entries=2000000,
+        max_top2=int(opt_args.get("max_top2", 30)),
+        max_seed_diff=int(opt_args.get("max_seed_diff", 2)),
+        CH=int(opt_args.get("chain", 4)))
+
+
+def qc_step_full(fm_arrays: DeviceFM, tables: SiteTables, opt_args: dict,
+                 seqs, rseqs, quals, lens,
+                 bitmaps=None, thresh: int = 3,
+                 pileup_cap: int = PILEUP_CAP,
+                 marker_base: torch.Tensor | None = None,
+                 md_table: torch.Tensor | None = None,
+                 return_per_read: bool = False,
+                 pair_mode: bool = False,
+                 last_ii: torch.Tensor | None = None,
+                 last_drand: torch.Tensor | None = None,
+                 fb_fill: tuple | None = None,
+                 pe_fill: dict | None = None,
+                 kernel: str = "resident",
+                 times: dict | None = None):
+    """One batch's full QC step on the tensors' device.
+
+    fm_arrays: the index as the port's DeviceFM (the reference takes its
+    arrays as a dict).  seqs: (B, L) reversed codes; rseqs: (B, L)
+    revcomp codes (both as stored by bwa's seq_reverse); quals: (B, L)
+    phred in read orientation; lens: (B,).  marker_base: (M,) per-marker
+    slot offset for this batch's pileup entries (0 when None).
+
+    kernel: "resident" (the resident search kernel, the reference's
+    choice with its packed FM table) or "scan" (the scan kernel, the
+    counterpart of the reference's XLA lockstep path; chain 1 only, with
+    opt_args["lanes"] lanes, default 1024).
+
+    fb_fill: optional (fb_n (B,), fb_rows (B, A_MAX, 3)) host-exact hit
+    lists for kernel-fallback reads (pack_host_hits).  Filled reads are
+    treated as device-finished: the drand48 stream then consumes their
+    draws in order.  pe_fill: pack_pe_fill's dict (tensors).  times: a
+    dict that receives each stage's wall time in seconds ("search",
+    "drand48", "se_mapq", and in pair mode "pairing", "second_pass",
+    "pair_status"; then "accumulate")."""
+    B, L = seqs.shape
+    dev = seqs.device
+    S, M = tables.n_sites, tables.n_markers
+    n_text = int(opt_args["n_text"])
+    stage = _Stages(times, dev)
+    lens = lens.long()
+
+    fwd = ragged_unreverse(seqs, lens)  # forward codes, ragged-correct
+    if bitmaps is not None:
+        kept = filter_reads(bitmaps, fwd, lens, thresh)
+    else:
+        kept = torch.ones(B, dtype=torch.bool, device=dev)
+    if md_table is not None:  # per-read maxdiff (bwa_cal_maxdiff by len)
+        md_of_len = md_table.long()[lens.clamp(0, md_table.shape[0] - 1)]
+    else:
+        md_of_len = torch.full((B,), int(opt_args["max_diff"]), dtype=_i64,
+                               device=dev)
+    md = torch.where(kept, md_of_len, -1)
+    seed_len = int(opt_args.get("seed_len", 32))
+    use_seed = (lens > seed_len) if opt_args.get("use_seed", True) \
+        else torch.zeros(B, dtype=torch.bool, device=dev)
+    P = _search_params(opt_args, L)
+    if kernel == "scan" and P.CH != 1:
+        raise ValueError("pallas scan path supports chain=1 only")
+    if kernel not in ("resident", "scan"):
+        raise ValueError(f"unknown search kernel {kernel!r}")
+    # the search takes the rows it searches (md >= 0) as one dense chunk:
+    # a row it skips would idle a scan lane for good (search_kernels.
+    # scan_chunk), and a skipped row's results are zeros either way
+    real = (md >= 0).nonzero()[:, 0]
+    n_aln = torch.zeros(B, dtype=_i64, device=dev)
+    alns = torch.zeros((B, A_MAX, 3), dtype=_i32, device=dev)
+    fallback = torch.zeros(B, dtype=_i64, device=dev)
+    if real.numel():
+        inp = read_inputs(fm_arrays, seqs[real], lens[real], md[real],
+                          use_seed[real], P)
+        if kernel == "scan":
+            out = scan_chunk(fm_arrays, P, int(opt_args.get("lanes", 1024)),
+                             int(opt_args.get("inner", 16)), **inp)[:3]
+        else:
+            out = resident_search(fm_arrays, P, **inp)[:3]
+        del inp
+        n_aln[real] = out[0].long()
+        alns[real] = out[1]
+        fallback[real] = out[2].long()
+        del out
+    if fb_fill is not None:
+        fb_n, fb_rows = (torch.as_tensor(x, device=dev) for x in fb_fill)
+        has_fill = (fallback != 0) & (fb_n >= 0)
+        n_aln = torch.where(has_fill, fb_n.long(), n_aln)
+        alns = torch.where(has_fill[:, None, None], fb_rows.to(alns.dtype),
+                           alns)
+        fallback = torch.where(has_fill, 0, fallback)
+    stage("search")
+
+    draw = None
+    drand_state = None
+    if opt_args.get("drand48", False):
+        # the reference drand48 reservoir selection (bwase.c:19-44): one
+        # global stream in read order
+        state0 = last_drand if last_drand is not None else torch.as_tensor(
+            seed_state(int(opt_args.get("drand_seed", 11))), device=dev)
+        f0, row_d, drand_state = aln2seq_draw_scan(n_aln, alns, state0)
+        draw = (f0, row_d)
+    stage("drand48")
+
+    mapped, strand, row, c1, c2, n_mm, n_gapo, n_gape = se_select(
+        n_aln, alns, draw=draw)
+    mapped = mapped & kept & (fallback == 0)
+    mapq = _approx_mapq(c1, c2, n_mm == md_of_len)
+    # SA row -> pac pos: strand 1 reads the forward SA; strand 0 converts
+    # through the reverse index
+    row_c = row.clamp(0, n_text)
+    sa = fm_arrays.sa
+    pos = torch.where(strand == 1, sa[0][row_c].long(),
+                      n_text - (sa[1][row_c].long() + lens))
+    stage("se_mapq")
+
+    pair_acc = {}
+    if pair_mode:
+        pair_acc, mapped, pos, strand, mapq, n_gapo, n_gape = _pair_mode(
+            fm_arrays, tables, opt_args, n_text, n_aln, alns, lens, mapped,
+            pos, strand, mapq, n_mm, n_gapo, n_gape, last_ii, pe_fill,
+            stage)
+        stage("pair_status")
+
+    gapped = mapped & ((n_gapo > 0) | (n_gape > 0))
+    eligible = mapped & (mapq >= 20) & ~gapped
+    acc = _accumulate(tables, n_text, S, M, seqs, rseqs, quals, lens, fwd,
+                      eligible, pos, strand, mapq, pileup_cap, marker_base)
+    acc.update({
+        "n_reads": torch.tensor(B, dtype=_i32, device=dev),
+        "n_filtered": _count(~kept),
+        "n_mapped": _count(mapped),
+        "n_eligible": _count(eligible),
+        "n_gapped": _count(gapped),
+        "n_fallback": _count(fallback != 0),
+        "n_xy": _count(eligible & tables.is_xy[pos.clamp(0, n_text)]),
+    })
+    if drand_state is not None:
+        acc["_drand_state"] = drand_state  # stream continuation state
+    acc.update(pair_acc)
+    stage("accumulate")
+    if not return_per_read:
+        return acc
+    # per-read flags for the driver: which reads the host must redo
+    # exactly -- kernel overflows, plus gapped primaries (host refine)
+    per_read = {
+        "kept": kept,
+        "mapped": mapped,
+        "eligible": eligible,
+        "fallback": fallback.to(_i32),
+        "host_redo": kept & ((fallback != 0)
+                             | (mapped & gapped & (mapq >= 20))),
+    }
+    return acc, per_read
+
+
+def _count(mask: torch.Tensor) -> torch.Tensor:
+    return mask.sum().to(_i32)
+
+
+def _pair_mode(fm, tables, opt_args, n_text, n_aln, alns, lens, mapped,
+               pos, strand, mapq, n_mm, n_gapo, n_gape, last_ii, pe_fill,
+               stage):
+    """The reference's PE semantics on the batch (rows (2i, 2i+1) are
+    mates): isize inference from SE mapQ (bwape.c:55), the pairing sweep
+    and its second pass over the pairs the k_occ cap truncated, the pe_fill
+    injection, the contig-overhang demotion and the pair statuses.
+    Returns (pair accumulators, and mapped, pos, strand, mapq, n_gapo,
+    n_gape after pairing)."""
+    dev = pos.device
+    sa = fm.sa
+    g_log_n = torch.tensor(G_LOG_N, dtype=_i64, device=dev)
+    k_occ = int(opt_args.get("k_occ", 32))
+    ap_prior = float(opt_args.get("ap_prior", 1e-5))
+    max_isize = int(opt_args.get("max_isize", 500))
+    s_mm = int(opt_args.get("s_mm", 3))
+
+    def half(x, j):
+        return x[j::2]
+
+    se = [dict(pos=half(pos, j), strand=half(strand, j), mapq=half(mapq, j),
+               seq_q=half(mapq, j), n_mm=half(n_mm, j),
+               n_gapo=half(n_gapo, j), n_gape=half(n_gape, j),
+               len=half(lens, j)) for j in (0, 1)]
+    mapped0, mapped1 = half(mapped, 0), half(mapped, 1)
+
+    hist, mlen = isize_hist_local(
+        se[0]["pos"], se[1]["pos"], se[0]["len"], se[1]["len"],
+        se[0]["mapq"], se[1]["mapq"], mapped0 & mapped1)
+    ii = infer_isize_from_hist(hist, mlen, ap_prior, n_text, last_ii=last_ii)
+
+    alns0, alns1 = alns[0::2], alns[1::2]
+    occ0 = expand_occurrences(sa, n_text, half(n_aln, 0), alns0,
+                              se[0]["len"], k_occ)
+    occ1 = expand_occurrences(sa, n_text, half(n_aln, 1), alns1,
+                              se[1]["len"], k_occ)
+    occ_fit = (occ0["n_occ"] <= k_occ) & (occ1["n_occ"] <= k_occ)
+    pair_ok = mapped0 & mapped1 & occ_fit
+    out0, out1, cnt_chg = pairing_sweep(occ0, occ1, alns0, alns1, se[0],
+                                        se[1], pair_ok, ii, s_mm, max_isize,
+                                        g_log_n)
+    stage("pairing")
+
+    # second-phase expansion: pairs the k_occ cap truncated re-expand at
+    # k_occ2 and re-run the sweep, up to ovf_cap pairs in read order
+    k_occ2 = int(opt_args.get("k_occ2", 512))
+    ovf_cap = int(opt_args.get("ovf_cap", 64))
+    fits2 = (occ0["n_occ"] <= k_occ2) & (occ1["n_occ"] <= k_occ2)
+    ovf_pair = mapped0 & mapped1 & ~occ_fit & fits2
+    rank = torch.cumsum(ovf_pair.long(), 0) - 1
+    within = ovf_pair & (rank < ovf_cap)
+    n_within = int(within.sum())
+    # with no pair within, the pass would change nothing: its writes all
+    # drop and it finds no pair, so its cnt_chg is 0
+    if n_within:
+        sel = within.nonzero()[:, 0]  # (n_within,) in read order
+        a0s, a1s = alns0[sel], alns1[sel]
+        se0s = {kk: vv[sel] for kk, vv in se[0].items()}
+        se1s = {kk: vv[sel] for kk, vv in se[1].items()}
+        occ0b = expand_occurrences(sa, n_text, half(n_aln, 0)[sel], a0s,
+                                   se0s["len"], k_occ2)
+        occ1b = expand_occurrences(sa, n_text, half(n_aln, 1)[sel], a1s,
+                                   se1s["len"], k_occ2)
+        live = torch.ones(n_within, dtype=torch.bool, device=dev)
+        out0b, out1b, cnt_chgb = pairing_sweep(occ0b, occ1b, a0s, a1s, se0s,
+                                               se1s, live, ii, s_mm,
+                                               max_isize, g_log_n)
+        for f in out0:
+            out0[f] = out0[f].clone()
+            out1[f] = out1[f].clone()
+            out0[f][sel] = out0b[f].to(out0[f].dtype)
+            out1[f][sel] = out1b[f].to(out1[f].dtype)
+        cnt_chg = cnt_chg + cnt_chgb
+    stage("second_pass")
+
+    fmask = None
+    if pe_fill is not None:
+        pe_fill = {k: torch.as_tensor(v, device=dev) for k, v in
+                   pe_fill.items()}
+        fmask = pe_fill["mask"] != 0
+        for j, out in ((0, out0), (1, out1)):
+            for f in ("pos", "strand", "mapq", "seq_q", "n_mm", "n_gapo",
+                      "n_gape"):
+                out[f] = torch.where(fmask, pe_fill[f"{f}{j}"].long(),
+                                     out[f].long())
+            out["proper"] = torch.where(fmask, pe_fill[f"proper{j}"] != 0,
+                                        out["proper"])
+            zcl = torch.zeros_like(out["pos"])
+            out["cl_l"] = torch.where(fmask, pe_fill[f"cl_l{j}"].long(), zcl)
+            out["cl_r"] = torch.where(fmask, pe_fill[f"cl_r{j}"].long(), zcl)
+            # cigar reference span (sum of M/D) for the demotion
+            out["span"] = torch.where(fmask, pe_fill[f"span{j}"].long(),
+                                      out["len"].long())
+
+    def ileave(a0, a1):
+        return torch.stack([a0.long(), a1.long()], 1).reshape(-1)
+
+    pos = ileave(out0["pos"], out1["pos"])
+    strand = ileave(out0["strand"], out1["strand"])
+    mapq = ileave(out0["mapq"], out1["mapq"])
+    n_gapo = ileave(out0["n_gapo"], out1["n_gapo"])
+    n_gape = ileave(out0["n_gape"], out1["n_gape"])
+    span_il = lens
+    if fmask is not None:
+        # a rescued previously-unmapped end becomes mapped
+        fmask2 = torch.stack([fmask, fmask], 1).reshape(-1)
+        fmap = torch.stack([pe_fill["mapped0"] != 0,
+                            pe_fill["mapped1"] != 0], 1).reshape(-1)
+        mapped = torch.where(fmask2, fmap, mapped)
+        span_il = torch.where(fmask2, ileave(out0["span"], out1["span"]),
+                              lens)
+
+    # contig-overhang demotion (AddAlignment, StatCollector.cpp:725-734)
+    C = tables.contig_off.shape[0]
+    cid = tables.contig_id[pos.clamp(0, n_text)].long()
+    offv = tables.contig_off[cid.clamp(0, C - 1)].long()
+    clnv = tables.contig_len[cid.clamp(0, C - 1)].long()
+    mapped = mapped & (cid >= 0) & (pos + span_il - offv <= clnv)
+    mapped0, mapped1 = half(mapped, 0), half(mapped, 1)
+
+    ps = pair_status(tables.contig_id, tables.contig_off, tables.contig_len,
+                     n_text, out0, out1, mapped0, mapped1)
+    i32 = lambda x: x.to(_i32)  # noqa: E731
+    pair_acc = {
+        "isize_dist": ps["isize_dist"],
+        "pair_status_counts": ps["status_counts"],
+        "n_pair_reads": ps["n_pair_reads"],
+        "n_pair_cnt_chg": i32(cnt_chg),
+        "n_pair_ovf": _count(mapped0 & mapped1 & ~occ_fit & ~within),
+        "_pair_keys": ps["dup_keys"],
+        "_ii": ii,
+        "_isize_hist": hist,
+        "_isize_maxlen": mlen,
+        "_pair_rows": {
+            "status": ps["status"], "actual": ps["actual"],
+            "mi": ps["mi"], "mi2": ps["mi2"],
+            "cid_p": ps["cid_p"], "cid_q": ps["cid_q"],
+            "pos0": i32(out0["pos"]), "pos1": i32(out1["pos"]),
+            "strand0": i32(out0["strand"]), "strand1": i32(out1["strand"]),
+            "mapq0": i32(out0["mapq"]), "mapq1": i32(out1["mapq"]),
+            "len0": i32(out0["len"]), "len1": i32(out1["len"]),
+            "proper": out0["proper"],
+            "mapped0": mapped0, "mapped1": mapped1,
+            "n_mm0": i32(out0["n_mm"]), "n_mm1": i32(out1["n_mm"]),
+            "n_gapo0": i32(out0["n_gapo"]), "n_gapo1": i32(out1["n_gapo"]),
+            "n_gape0": i32(out0["n_gape"]), "n_gape1": i32(out1["n_gape"]),
+            "seq_q0": i32(out0["seq_q"]), "seq_q1": i32(out1["seq_q"]),
+        },
+    }
+    return pair_acc, mapped, pos, strand, mapq, n_gapo, n_gape
+
+
+def _accumulate(tables, n_text, S, M, seqs, rseqs, quals, lens, fwd,
+                eligible, pos, strand, mapq, pileup_cap, marker_base):
+    """The per-base accumulators over the covered (B, L) grid and the
+    marker pileups in read order.  (B, L) planes stay int32; only the
+    flat scatter indices are int64."""
+    B, L = seqs.shape
+    dev = seqs.device
+    offs = torch.arange(L, dtype=_i32, device=dev)[None, :]
+    lens32 = lens.to(_i32)[:, None]
+    cover = eligible[:, None] & (offs < lens32)
+    pacp = torch.where(cover, pos[:, None] + offs, n_text).clamp(0, n_text)
+    # read bases / quals / cycles in reference orientation
+    rev = (strand == 1)[:, None]
+    ref_read = torch.where(rev, ragged_unreverse(rseqs, lens),
+                           fwd).to(_i32)
+    ref_qual = torch.where(rev, quals, ragged_unreverse(quals, lens, fill=0))
+    cycle = torch.where(rev, (lens32 - 1 - offs).clamp(0, L), offs)
+    site = tables.site_idx[pacp]  # (B, L) int32
+    mk = tables.marker_id[pacp]
+    fb_base = tables.text[pacp]
+    del pacp
+    in_reg = cover & (site >= 0)
+    del cover
+    site_c = torch.where(in_reg, site.long(), S)
+    del site
+    bq = ref_qual.clamp(0, 93).to(_i32)
+    dbsnp_g = torch.cat([tables.dbsnp,
+                         torch.zeros(1, dtype=torch.bool, device=dev)])
+    mism = (in_reg & (ref_read < 4) & (fb_base < 4) & (ref_read != fb_base)
+            & ~dbsnp_g[site_c])
+    del fb_base
+
+    ones = in_reg.reshape(-1).long()
+    tier = ((bq >= 20).long() + (bq >= 30).long()).reshape(-1)
+    dense3 = torch.zeros(3 * (S + 1), dtype=_i64, device=dev)
+    dense3.index_add_(0, site_c.reshape(-1) + tier * (S + 1), ones)
+    del tier, site_c
+    t0, t1, t2 = (dense3[: S], dense3[S + 1: 2 * S + 1],
+                  dense3[2 * S + 2:][: S])
+    bq_flat = torch.where(in_reg, bq, 255).reshape(-1).long()
+    cyc_flat = torch.where(in_reg, cycle, 255).reshape(-1).clamp(
+        0, 255).long()
+    mism_ones = mism.reshape(-1).long()
+    del mism
+
+    def hist(idx, val):
+        return torch.zeros(256, dtype=_i64, device=dev).index_add_(
+            0, idx, val).to(_i32)
+
+    acc = {"depth": (t0 + t1 + t2).to(_i32), "q20": (t1 + t2).to(_i32),
+           "q30": t2.to(_i32), "emp_rep": hist(bq_flat, ones),
+           "mis_emp_rep": hist(bq_flat, mism_ones),
+           "emp_cycle": hist(cyc_flat, ones),
+           "mis_emp_cycle": hist(cyc_flat, mism_ones)}
+    del bq_flat, cyc_flat, mism_ones, ones
+
+    # ---- marker pileups in read order: the entries on a marker, in
+    # flattened (read-major) order ----
+    on_mk = (in_reg & (mk >= 0)).reshape(-1)
+    idx = on_mk.nonzero()[:, 0]
+    mk_v = mk.reshape(-1)[idx].long()
+    ranks = _pileup_ranks(mk_v, torch.ones_like(mk_v, dtype=torch.bool))
+    b_of = idx // L
+    packed = _pack_entry(
+        ref_read.reshape(-1)[idx].clamp(0, 4).long(),
+        bq.reshape(-1)[idx].long(), mapq[b_of].clamp(0, 127),
+        (strand[b_of] == 1).long(),
+        cycle.reshape(-1)[idx].clamp(0, 1023).long())
+    base_off = (torch.zeros(M, dtype=_i64, device=dev) if marker_base is None
+                else marker_base.long())
+    slot = ranks.long() + base_off[mk_v]
+    ok = slot < pileup_cap
+    pileup = torch.zeros((M + 1) * pileup_cap, dtype=_i64, device=dev)
+    pileup.index_add_(0, torch.where(ok, mk_v * pileup_cap + slot,
+                                     M * pileup_cap), torch.where(ok, packed,
+                                                                  0))
+    acc["pileup"] = pileup[: M * pileup_cap].reshape(M, pileup_cap).to(_i32)
+    acc["pileup_cnt"] = torch.zeros(M, dtype=_i64, device=dev).index_add_(
+        0, mk_v, torch.ones_like(mk_v)).to(_i32)
+    acc["pileup_ovf"] = _count(~ok)
+    acc["n_base_mapped"] = _count(in_reg)
+    return acc
+
+
+def count_pcr_dups(keys: torch.Tensor) -> torch.Tensor:
+    """num_pcr_dup from a (K, 3) multiset of (contig, start, end)
+    pac-coordinate pair keys (0x7FFFFFFF sentinel rows = no proper pair).
+    Every repeat of a key beyond its first occurrence counts 2 reads (the
+    reference's duplicate_table adds 2 per already-seen insert signature,
+    StatCollector.cpp:698-704); the count depends only on the multiset."""
+    real = keys[keys[:, 0] != 0x7FFFFFFF]
+    n_unique = torch.unique(real, dim=0).shape[0] if real.shape[0] else 0
+    return torch.tensor(2 * (real.shape[0] - n_unique), dtype=_i32,
+                        device=keys.device)
+
+
+def local_pileup_counts(tables: SiteTables, opt_args, fm_arrays,
+                        seqs, rseqs, quals, lens, bitmaps=None,
+                        thresh: int = 3, kernel: str = "resident"):
+    """This batch's per-marker entry counts (the mesh wrapper exchanges
+    them for cross-shard slot offsets before the accumulation pass)."""
+    out = qc_step_full(fm_arrays, tables, opt_args, seqs, rseqs, quals,
+                       lens, bitmaps=bitmaps, thresh=thresh, kernel=kernel)
+    return out["pileup_cnt"]

@@ -73,6 +73,7 @@ class SearchParams:
     max_entries: int
     max_top2: int
     max_seed_diff: int
+    CH: int = 1  # chain length: exact-walk bases a step (resident kernel)
 
     def to_array(self) -> np.ndarray:
         return np.array(astuple(self), dtype=np.int32)
@@ -184,7 +185,7 @@ def resident_search(fm: DeviceFM, P: SearchParams, seqs0: torch.Tensor,
         p(us32), p(nn32), N, p(widths), p(seed32), p(pool), p(freel),
         p(alns), p(n_aln), p(fb), p(steps), p(hwm), ctypes.c_void_p(stream))
     build.check(rc, "search")
-    build.launch_counts["search"] += 1
+    build.launch_counts["search_chain" if P.CH > 1 else "search"] += 1
     return n_aln, alns, fb, steps
 
 
@@ -397,6 +398,27 @@ class PlainLanes:
              torch.where(start_chain, n_gape, ch[:, 6]),
              torch.where(start_chain, ldp, ch[:, 7])], 1)
         ch = torch.where(chainish[:, None], new_ch, ch)
+        # bases 2..CH of the walk (the reference's chain sub-steps): lanes
+        # still walking advance one more base each, with their own ranks
+        for _ in range(P.CH - 1):
+            act = ch_cont
+            if not bool(act.any()):
+                break
+            s_a = ch[:, 3]
+            s_sel = 1 - s_a
+            s_cnt_k, s_cnt_l = occ4_pair(fm, s_sel, ch[:, 0] - 1, ch[:, 1])
+            s_cc = _g(seqf, s_a * L + (ch[:, 2] - 1).clamp(0, L - 1))
+            s_ccl = s_cc.clamp(0, 3)
+            s_L2c = _g(L2[s_sel], s_ccl)
+            s_nk = s_L2c + _g(s_cnt_k, s_ccl) + 1
+            s_nl = s_L2c + _g(s_cnt_l, s_ccl)
+            adv = act & ~((s_cc > 3) | (s_nk > s_nl))
+            s_hit = adv & (ch[:, 2] - 1 == 0)
+            ch = torch.where(adv[:, None], torch.cat(
+                [torch.stack([s_nk, s_nl, ch[:, 2] - 1], 1), ch[:, 3:]], 1),
+                ch)
+            ch_hit = ch_hit | s_hit
+            ch_cont = adv & ~s_hit
         self.ch = ch
         self.ch_on = ch_cont
 
@@ -665,9 +687,19 @@ def scan_chunk(fm: DeviceFM, P: SearchParams, lanes: int, inner: int,
     it launches the scan kernel once for the whole chunk, rounds, flushes
     and refills included, or raises.  Returns what scan_search returns:
     (n_aln, alns, fb, steps), the rounds (read back once) and the busy
-    steps (a device scalar)."""
+    steps (a device scalar).  The scan path walks one base a step, as the
+    reference's scan kernel does: a chain length P.CH other than 1 raises."""
+    if P.CH != 1:
+        raise ValueError("pallas scan path supports chain=1 only")
     N = seqs0.shape[0]
     B = min(lanes, N)
+    # a padding row below the last real one idles the lane it is refilled
+    # into for good; with B of them no lane is left and the rounds never end
+    n_idle = int((md[:_n_ids(md)] < 0).sum())
+    if n_idle >= B:
+        raise ValueError(f"{n_idle} padding rows (md < 0) among the chunk's "
+                         f"reads would idle all {B} scan lanes: put padding "
+                         "rows last")
     if seqs0.device.type == "cpu":
         return scan_search(fm, P, PlainLanes(fm, P, B, seqs0, lens, md,
                                              use_seed, n_n, widths, seed_w),

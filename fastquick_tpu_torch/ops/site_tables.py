@@ -1,8 +1,8 @@
 """Pac-coordinate site tables for the device dense statistics.
 
 Counterpart of ``SiteTables`` / ``build_site_tables`` in
-fastquick_tpu/ops/qc_full.py:75-135 (that module imports JAX, so only
-this numpy part is carried over), returning torch tensors.
+fastquick_tpu/ops/qc_full.py:75-135, returning torch tensors; the port's
+ops/qc_full re-exports both, as the reference module defines them.
 """
 
 from __future__ import annotations
@@ -29,6 +29,24 @@ class SiteTables:
     contig_len: torch.Tensor  # (C,) int32: contig lengths
     n_sites: int
     n_markers: int
+
+    @classmethod
+    def from_numpy(cls, site_idx, marker_id, text, dbsnp, is_xy, contig_id,
+                   contig_off, contig_len, n_sites: int, n_markers: int,
+                   device: str | torch.device = "cpu") -> "SiteTables":
+        """The tables from arrays (the fields of the reference package's
+        SiteTables, in its order), int32 and bool, on `device`."""
+        def put(a, dtype):
+            return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype),
+                                   device=device)
+
+        i32 = np.int32
+        return cls(site_idx=put(site_idx, i32), marker_id=put(marker_id, i32),
+                   text=put(text, i32), dbsnp=put(dbsnp, bool),
+                   is_xy=put(is_xy, bool), contig_id=put(contig_id, i32),
+                   contig_off=put(contig_off, i32),
+                   contig_len=put(contig_len, i32), n_sites=int(n_sites),
+                   n_markers=int(n_markers))
 
 
 def build_site_tables(idx, sc, opt,
@@ -62,18 +80,9 @@ def build_site_tables(idx, sc, opt,
         if chrom in ("X", "Y"):
             is_xy[contig.offset:contig.offset + contig.length] = True
 
-    def put(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=device)
-
-    return SiteTables(
-        site_idx=put(site_idx),
-        marker_id=put(marker_id),
-        text=put(np.concatenate([idx.text.astype(np.int32), [4]])
-                 .astype(np.int32)),
-        dbsnp=put(np.asarray(sites.dbsnp, dtype=bool)),
-        is_xy=put(is_xy),
-        contig_id=put(contig_id),
-        contig_off=put(np.array([c.offset for c in idx.contigs], np.int32)),
-        contig_len=put(np.array([c.length for c in idx.contigs], np.int32)),
-        n_sites=int(sites.total),
-        n_markers=len(sc.vcf_rec_vec))
+    return SiteTables.from_numpy(
+        site_idx, marker_id, np.concatenate([idx.text.astype(np.int32), [4]]),
+        np.asarray(sites.dbsnp, dtype=bool), is_xy, contig_id,
+        np.array([c.offset for c in idx.contigs], np.int32),
+        np.array([c.length for c in idx.contigs], np.int32),
+        int(sites.total), len(sc.vcf_rec_vec), device)

@@ -27,7 +27,7 @@ COPIES = (
     "align/rand.py", "align/refine.py", "align/seqs.py", "align/sam.py",
     "align/engine.py",
     "stats/__init__.py", "stats/collector.py", "stats/sites.py",
-    "stats/insertsize.py",
+    "stats/insertsize.py", "stats/device_merge.py",
     "native/__init__.py", "native/aligner.cpp", "native/fastq_loader.cpp",
     "native/sw.cpp",
     "testing/__init__.py", "ops/__init__.py",

@@ -1,9 +1,10 @@
 """The port's BatchEngine (plain PyTorch search on the CPU) against
 fastquick_tpu's XLA search and HostEngine; hit compaction against
-_compact_hits; lane independence of the plain search; and the search
+_compact_hits; lane independence of the plain search; the search
 kernel's per-read body, built for the host with g++, against the plain
-version, in read order and in a shuffled one.  Every comparison is
-exact."""
+version, in read order and in a shuffled one; and the chain length CH
+(exact-walk bases a step) of the plain version and of the host build
+against the XLA search's CH_STEPS.  Every comparison is exact."""
 
 import ctypes
 import dataclasses
@@ -208,3 +209,70 @@ def test_search_body_host_build_any_pull_order():
                           want):
         assert torch.equal(a, b), name
     assert int((want[2] != 0).sum()) > 0, "world should exercise fallbacks"
+
+
+def _xla_search(fm, P, inp, chain):
+    """fastquick_tpu's XLA _search_kernel on the chunk's inputs, every read
+    on its own lane.  Returns (n_aln, alns, fb) as numpy and the busy
+    steps (the sum of the reads' steps)."""
+    N = inp["seqs0"].shape[0]
+    n_aln, alns, fb, _, busy = jbs._search_kernel(
+        jnp.asarray(fm.words.numpy()), jnp.asarray(fm.occ.numpy()),
+        jnp.asarray(fm.sa.numpy()), jnp.asarray(fm.L2.numpy()),
+        jnp.asarray(fm.primary.numpy()),
+        jnp.asarray(inp["seqs0"].numpy().astype(np.int8)),
+        jnp.asarray(inp["lens"].numpy().astype(np.int32)),
+        jnp.asarray(inp["md"].numpy().astype(np.int32)),
+        jnp.asarray(inp["use_seed"].numpy()),
+        B=N, NP=P.NP, K_INNER=16, CH_STEPS=chain, step_cap=P.step_cap,
+        s_mm=P.s_mm, s_gapo=P.s_gapo, s_gape=P.s_gape, max_gapo=P.max_gapo,
+        max_gape=P.max_gape, indel_end_skip=P.indel_end_skip,
+        max_del_occ=P.max_del_occ, max_entries=P.max_entries,
+        max_top2=P.max_top2, seed_len=P.SL, max_seed_diff=P.max_seed_diff,
+        n_text=fm.n)
+    return (np.asarray(n_aln), np.asarray(alns), np.asarray(fb)), int(busy)
+
+
+@pytest.fixture(scope="module")
+def chain_world():
+    """A chunk at pool 512 and a step cap of 160 that binds: one step cap
+    for all, so the chain length changes which reads reach it."""
+    idx = make_idx(seed=8)
+    reads = port_reads(synth_reads(idx, 200, 18))
+    fm, P, inp = _chunk(idx, reads, 512)
+    return fm, dataclasses.replace(P, step_cap=160), inp
+
+
+@pytest.mark.parametrize("chain", [1, 4])
+def test_chain_plain_matches_xla(chain_world, chain):
+    """The plain search at chain length 1 and 4 against the XLA search at
+    CH_STEPS 1 and 4: hits, fallback sets and steps."""
+    fm, P, inp = chain_world
+    P = dataclasses.replace(P, CH=chain)
+    got = search_plain(fm, P, **inp)
+    want, busy = _xla_search(fm, P, inp, chain)
+    for name, g, w in zip(("n_aln", "alns", "fb"), got, want):
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+    assert int(got[3].long().sum()) == busy
+    assert int((got[2] != 0).sum()) > 0, "the step cap should bind"
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
+def test_chain_host_build_matches_plain(chain_world):
+    """The chain kernel's body (CH = 4) against the plain version, read for
+    read, pool high-water marks included; CH changes the steps and the
+    fallback set, and not the hits of the reads both finish."""
+    fm, P, inp = chain_world
+    P4 = dataclasses.replace(P, CH=4)
+    want = _plain_with_hwm(fm, P4, inp)
+    got = _host_search(fm, P4, inp, np.arange(inp["seqs0"].shape[0]))
+    for name, a, b in zip(("n_aln", "alns", "fb", "steps", "hwm"), got,
+                          want):
+        assert torch.equal(a, b), name
+    one = _plain_with_hwm(fm, P, inp)
+    assert int(want[3].long().sum()) < int(one[3].long().sum())
+    assert not torch.equal(want[2] != 0, one[2] != 0), \
+        "CH should change the fallback set at this cap"
+    both = (want[2] == 0) & (one[2] == 0)
+    assert torch.equal(want[0][both], one[0][both])
+    assert torch.equal(want[1][both], one[1][both])
