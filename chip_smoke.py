@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive fastquick_tpu_torch's ``align --device_qc`` on one NVIDIA GPU.
+"""Drive fastquick_tpu_torch's pipeline on one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases, one card, ~10 minutes
 
@@ -65,8 +65,30 @@ Phases (any failure raises and the script exits non-zero):
    resident run's first-pass search launch to the plain search on 4,096
    evenly spaced reads of its chunk.
 
+6. pipeline: the stages after align.  On the small world (phase 3's),
+   ``align --device_qc --shard_out`` on each half of its FASTQs by
+   record, then ``merge``: the shard BAMs and the 11 merged product files
+   byte-identical to native shards and their merge; against phase 3's
+   single device run, DepthDist, GCDist, EmpRepDist, EmpCycleDist and
+   the Pileup's per-marker depths and sorted bases equal (the insert-size
+   files and the Summary are printed, not held: a shard restarts the
+   drand48 stream that the repeat markers' reads draw their hits from,
+   in the reference as well).  On the production world (phase 4's),
+   a panel of 60 samples at every fourth marker
+   (testing/synthworld.write_panel), then ``fastquick-torch all --steps
+   AllButIndex --device cuda --RefVCF <panel>`` (SVD build, align on the
+   device path, pop+con, report) with the launch counts zeroed just
+   before it; where matplotlib is not installed, all's stages by their
+   own commands in all's order, without the report.  The 12 align
+   product files byte-identical to phase 4's native run; width, search
+   and SW launched; each stage's wall time, FREEMIX and the Ancestry PCs.
+   Then ``pop+con --DeviceLLK --device cuda`` on the same Pileup (FREEMIX
+   within 5e-3 of numpy's); DeviceLLK on the card within rel 2e-5 of the
+   numpy likelihood at three points; one evaluation's time on the card
+   and in numpy, and the evaluations and wall time of each solve.
+
 The last two lines of stdout are the kernels line and
-{"ok": true, "device": {...}}, printed only when phases 2-4 all ran
+{"ok": true, "device": {...}}, printed only when phases 2-6 all ran
 (``--phases`` picks a subset for debugging).  Numbers and logs also go to
 chiprun_out/chip_smoke/.  Without CUDA, or outside a checkout of the
 repository, it exits non-zero and prints no result.
@@ -110,7 +132,7 @@ ALL_OUTPUTS = ("Summary", "DepthDist", "GCDist", "EmpRepDist",
                "SexChromInfo", "Pileup", "vcf", "InsertSizeTable", "bam")
 
 # after the card phase
-ALL_PHASES = ("kernels", "small", "production", "program")
+ALL_PHASES = ("kernels", "small", "production", "program", "pipeline")
 
 KERNELS = {
     "width": ("fastquick_tpu_torch/csrc/width.cu",
@@ -1149,13 +1171,341 @@ def phase_program(work: Path, logf, seed: int, pairs: int,
     return res
 
 
+# ------------------------------------------------------------- phase 6
+
+
+# the files tests/test_shard_merge.py:65-84 holds a merge to a single run
+# by (with the Pileup's per-marker depths and sorted bases); the first four
+# hold on any world, the last three only where no read's hits are drawn
+MERGE_FILES = ("DepthDist", "GCDist", "EmpRepDist", "EmpCycleDist",
+               "RawInsertSizeDist", "AdjustedInsertSizeDist", "Summary")
+# the (pc, alpha) points of tests/test_device_llk.py:23-24
+LLK_POINTS = (([0.0, 0.0], 0.03), ([0.05, -0.02], 0.2), ([-0.1, 0.1], 0.45))
+LLK_REPS = 200
+
+
+def _split_fastq(src: str, out_a: str, out_b: str) -> int:
+    """Split a gzip FASTQ into its first and second half by record."""
+    import gzip
+
+    with gzip.open(src, "rt") as fh:
+        lines = fh.readlines()
+    half = len(lines) // 8 * 4
+    with gzip.open(out_a, "wt", compresslevel=1) as fa:
+        fa.writelines(lines[:half])
+    with gzip.open(out_b, "wt", compresslevel=1) as fb:
+        fb.writelines(lines[half:])
+    return len(lines) // 4
+
+
+def _pileup_depths(path: str) -> dict:
+    """Per-marker depth and sorted bases of a .Pileup."""
+    out = {}
+    with open(path) as fh:
+        for line in fh:
+            c = line.split("\t")
+            out[int(c[1])] = (int(c[3]), "".join(sorted(c[4].upper())))
+    return out
+
+
+def _freemix(prefix: str) -> float:
+    with open(prefix + ".selfSM") as fh:
+        return float(fh.read().splitlines()[1].split("\t")[6])
+
+
+def _ancestry(prefix: str) -> str:
+    with open(prefix + ".Ancestry") as fh:
+        return "; ".join(line.strip().replace("\t", " ")
+                         for line in fh.readlines()[1:])
+
+
+def _cli(argv: list[str], logf) -> float:
+    """One fastquick-torch command, its output to the log; its wall s."""
+    from fastquick_tpu_torch.cli import main
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(logf), contextlib.redirect_stdout(logf):
+        rc = main(argv)
+    if rc != 0:
+        raise RuntimeError(f"{' '.join(argv[:1])} exited {rc}")
+    return time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _stage_clock(times: dict, after_align):
+    """Time the pipeline's stages as fastquick_tpu_torch/pipeline.py calls
+    them (the SVD build, align, pop+con, report); after_align() runs as
+    soon as align returns, before pop+con appends to its .Summary."""
+    from fastquick_tpu_torch.align import driver as align_driver
+    from fastquick_tpu_torch.pop import driver as pop_driver
+    from fastquick_tpu_torch.report import report
+
+    run_align, run_popcon = align_driver.run_align, pop_driver.run_popcon
+    gen_report = report.generate_report
+
+    def clocked(name, fn, after=None):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            times[name] = time.perf_counter() - t0
+            if after:
+                after()
+            return out
+        return run
+
+    def popcon(argv):
+        name = "svd" if "--RefVCF" in argv else "pop+con"
+        return clocked(name, run_popcon)(argv)
+
+    with mock.patch.object(align_driver, "run_align",
+                           clocked("align", run_align, after_align)), \
+            mock.patch.object(pop_driver, "run_popcon", popcon), \
+            mock.patch.object(report, "generate_report",
+                              clocked("report", gen_report)):
+        yield
+
+
+def phase_pipeline(work: Path, logf, seed: int, pairs: int,
+                   small_w: dict | None = None,
+                   prod_w: dict | None = None) -> dict:
+    import importlib.util
+
+    import torch
+
+    from fastquick_tpu_torch.kernels import build
+    from fastquick_tpu_torch.pop import device_llk
+    from fastquick_tpu_torch.pop import estimator as pop_est
+    from fastquick_tpu_torch.pop.pileup import read_pileup_file
+    from fastquick_tpu_torch.testing.popcon_cases import estimator_from_files
+    from fastquick_tpu_torch.testing.synthworld import (
+        build_production_world,
+        build_synth_pe_world,
+        write_panel,
+    )
+
+    d = work / "pipeline"
+    d.mkdir()
+    res: dict = {}
+    with contextlib.redirect_stderr(logf):
+        if small_w is None:
+            (work / "small").mkdir(exist_ok=True)
+            small_w = build_synth_pe_world(work / "small")
+        if prod_w is None:
+            (work / "prod").mkdir(exist_ok=True)
+            prod_w = build_production_world(work / "prod", seed=seed,
+                                            n_pairs=pairs)
+    # phase 3's single device run and phase 4's native run, else made here
+    small_dev = str(Path(small_w["tmp"]) / "dev")
+    if not Path(small_dev + ".Summary").exists():
+        _device_run(["--fastq_1", small_w["fq1"], "--fastq_2",
+                     small_w["fq2"], "--index_prefix", small_w["idx_prefix"],
+                     "--out_prefix", small_dev], logf, "resident")
+    nat = str(Path(prod_w["tmp"]) / "nat")
+    if not Path(nat + ".Summary").exists():
+        _align(["--fastq_1", prod_w["fq1"], "--fastq_2", prod_w["fq2"],
+                "--index_prefix", prod_w["idx_prefix"], "--out_prefix", nat,
+                "--engine", "native"], logf)
+
+    # ---- the small world: two shards on the card, then merge ----
+    halves = {}
+    for h in "ab":
+        halves[h] = (str(d / f"{h}_1.fq.gz"), str(d / f"{h}_2.fq.gz"))
+    n1 = _split_fastq(small_w["fq1"], halves["a"][0], halves["b"][0])
+    _split_fastq(small_w["fq2"], halves["a"][1], halves["b"][1])
+    shards, merge_s = {}, {}
+    for h, (f1, f2) in halves.items():
+        args = ["--fastq_1", f1, "--fastq_2", f2, "--index_prefix",
+                small_w["idx_prefix"], "--shard_out"]
+        st, launches = _device_run(
+            args + ["--out_prefix", str(d / f"dev_{h}")], logf, "resident")
+        nat_st = _align(args + ["--out_prefix", str(d / f"nat_{h}"),
+                                "--engine", "native"], logf)
+        shards[h] = dict(wall_s=st["wall_s"], launches=launches,
+                         native_wall_s=nat_st["wall_s"])
+        if not filecmp.cmp(d / f"dev_{h}.bam", d / f"nat_{h}.bam",
+                           shallow=False):
+            raise AssertionError(f"shard {h}: device BAM differs from native")
+    for eng in ("dev", "nat"):
+        merge_s[eng] = _cli(["merge", "--index_prefix", small_w["idx_prefix"],
+                             "--out_prefix", str(d / f"{eng}_merged"),
+                             str(d / f"{eng}_a"), str(d / f"{eng}_b")], logf)
+    merged = str(d / "dev_merged")
+    for sfx in ALL_OUTPUTS[:-1]:  # merge writes every product file but bam
+        if not filecmp.cmp(f"{merged}.{sfx}", d / f"nat_merged.{sfx}",
+                           shallow=False):
+            raise AssertionError(f"merged .{sfx}: device shards differ from "
+                                 "native shards")
+    # against the single run: the files whose sums do not depend on the
+    # order of the reads (the drand48 stream of the repeat markers' hit
+    # draws restarts in each shard, so their pairs may differ)
+    same = {sfx: filecmp.cmp(f"{small_dev}.{sfx}", f"{merged}.{sfx}",
+                             shallow=False) for sfx in MERGE_FILES}
+    if not all(same[sfx] for sfx in MERGE_FILES[:4]):
+        raise AssertionError(f"merged against the single device run: {same}")
+    if _pileup_depths(small_dev + ".Pileup") != _pileup_depths(
+            merged + ".Pileup"):
+        raise AssertionError("merged .Pileup depths or bases differ from "
+                             "the single device run")
+    log(f"pipeline small world: {2 * n1} reads in two --shard_out device "
+        f"runs ({shards['a']['wall_s']:.1f}s, {shards['b']['wall_s']:.1f}s; "
+        f"launches {shards['a']['launches']}, {shards['b']['launches']}), "
+        f"merge {merge_s['dev']:.2f}s: shard BAMs and the 11 merged product "
+        "files byte-identical to native shards and their merge; against "
+        "the single device run, Pileup depths and bases equal and "
+        + ", ".join(f"{k} {'identical' if v else 'different'}"
+                    for k, v in same.items()))
+    res["shard_merge"] = dict(shards=shards, merge_s=merge_s,
+                              same_as_single=same)
+
+    # ---- production: the pipeline through its entry point ----
+    panel = write_panel(prod_w, seed=seed)
+    out = str(d / "sample")
+    align_args = ["--index_prefix", prod_w["idx_prefix"], "--out_prefix",
+                  out, "--device", "cuda", "--fastq_1", prod_w["fq1"],
+                  "--fastq_2", prod_w["fq2"]]
+    popcon_args = ["--DisableSanityCheck", "--PileupFile", out + ".Pileup",
+                   "--SVDPrefix", panel, "--Output", out, "--device", "cuda"]
+
+    def same_as_native():
+        for sfx in ALL_OUTPUTS:
+            if not filecmp.cmp(f"{nat}.{sfx}", f"{out}.{sfx}",
+                               shallow=False):
+                raise AssertionError(f"pipeline .{sfx} differs from the "
+                                     "native run")
+
+    times: dict = {}
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _stage_clock(times, same_as_native):
+        if has_mpl:
+            _cli(["all", "--steps", "AllButIndex", "--device", "cuda",
+                  "--index", prod_w["idx_prefix"], "--RefVCF", panel,
+                  "--DisableSanityCheck", "--fastq_1", prod_w["fq1"],
+                  "--fastq_2", prod_w["fq2"], "--output", out], logf)
+        else:
+            log("pipeline production: the report stage does not run, "
+                "matplotlib is not installed on this machine; all's other "
+                "stages run by their own commands, in all's order")
+            _cli(["pop+con", "--RefVCF", panel], logf)
+            _cli(["align"] + align_args, logf)
+            _cli(["pop+con"] + popcon_args, logf)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    if not (launches["width"] and launches["search"] and launches["sw"]):
+        raise AssertionError(f"the pipeline's align launched {launches}")
+    if "align" not in times or not Path(out + ".selfSM").exists():
+        raise AssertionError(f"the pipeline ran only {sorted(times)}")
+    fm = _freemix(out)
+    how = "fastquick-torch all" if has_mpl else "all's stages, no report"
+    log(f"pipeline production ({how}): {wall:.1f}s; stages "
+        + ", ".join(f"{k} {v:.2f}s" for k, v in times.items())
+        + f"; the 12 align product files byte-identical to the native run; "
+        f"launches {launches}; FREEMIX {fm}; Ancestry {_ancestry(out)}")
+    res["production"] = dict(all=has_mpl, wall_s=wall, stages=times,
+                             launches=launches, freemix=fm,
+                             ancestry=_ancestry(out))
+
+    # ---- production: the device likelihood on the card ----
+    n_eval = [0]
+    compute = pop_est.ContaminationEstimator.compute_mix_llks
+
+    def counted(self, *args):
+        n_eval[0] += 1
+        return compute(self, *args)
+
+    with mock.patch.object(pop_est.ContaminationEstimator,
+                           "compute_mix_llks", counted), \
+            mock.patch.object(device_llk, "DEVICE_DEFAULT", "cuda"):
+        llk_s = _cli(["pop+con", "--DeviceLLK", "--DisableSanityCheck",
+                      "--PileupFile", out + ".Pileup", "--SVDPrefix", panel,
+                      "--Output", str(d / "llk"), "--device", "cuda"], logf)
+        cli_evals = n_eval[0]
+        fm_dev = _freemix(str(d / "llk"))
+        if abs(fm_dev - fm) > 5e-3:
+            raise AssertionError(f"--DeviceLLK FREEMIX {fm_dev} against "
+                                 f"numpy's {fm}")
+        solves = {}
+        for name, use_device in (("numpy", False), ("device", True)):
+            est = estimator_from_files(pop_est.ContaminationEstimator,
+                                       read_pileup_file, panel,
+                                       out + ".Pileup", num_pc=4)
+            est.use_device = use_device
+            n_eval[0] = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(logf):
+                est.optimize(str(d / f"solve_{name}"))
+            solves[name] = dict(wall_s=time.perf_counter() - t0,
+                                evals=n_eval[0], alpha=est.global_alpha)
+
+    est = estimator_from_files(pop_est.ContaminationEstimator,
+                               read_pileup_file, panel, out + ".Pileup")
+    est._prepare()
+    llk = device_llk.DeviceLLK(est._counts, est._UD_act, est._means_act,
+                               device="cuda")
+    errs = []
+    for pc, a in LLK_POINTS:
+        got, want = llk(pc, pc, a), est.compute_mix_llks(pc, pc, a)
+        errs.append(abs(got - want) / abs(want))
+        if errs[-1] > 2e-5:
+            raise AssertionError(f"DeviceLLK {got} against numpy {want} at "
+                                 f"{pc}, {a}")
+    pc, a = LLK_POINTS[1]
+    for _ in range(10):
+        llk(pc, pc, a)
+    t0 = time.perf_counter()
+    for _ in range(LLK_REPS):
+        llk(pc, pc, a)
+    call_ms = (time.perf_counter() - t0) / LLK_REPS * 1e3
+    f32 = dict(dtype=torch.float32, device=llk.device)
+    pc_t, a_t = torch.tensor(pc, **f32), torch.tensor(a, **f32)
+    eval_ms = cuda_ms(lambda: llk.llk(pc_t, pc_t, a_t), LLK_REPS)
+    # the same evaluation replayed as one CUDA graph: the device's own
+    # work, without the host's dispatch of its ~25 small kernels
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        llk.llk(pc_t, pc_t, a_t)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = llk.llk(pc_t, pc_t, a_t)
+    graph_ms = cuda_ms(graph.replay, LLK_REPS)
+    if float(replayed) != float(llk.llk(pc_t, pc_t, a_t)):
+        raise AssertionError("the graph replay of DeviceLLK differs")
+    for _ in range(10):
+        est.compute_mix_llks(pc, pc, a)
+    t0 = time.perf_counter()
+    for _ in range(LLK_REPS):
+        est.compute_mix_llks(pc, pc, a)
+    numpy_ms = (time.perf_counter() - t0) / LLK_REPS * 1e3
+    log(f"pipeline DeviceLLK on {llk.device}: {est._counts.shape[0]} "
+        f"markers x {est._counts.shape[1]} bins; rel err against numpy at "
+        f"the 3 points {['%.2e' % e for e in errs]} (<= 2e-5); one "
+        f"evaluation {eval_ms} ms on the device (CUDA events, mean of "
+        f"{LLK_REPS}), {graph_ms} ms replayed as one CUDA graph, "
+        f"{call_ms:.4f} ms a call with its upload and sync, "
+        f"numpy {numpy_ms:.4f} ms; pop+con --DeviceLLK {llk_s:.2f}s, "
+        f"{cli_evals} evaluations, FREEMIX {fm_dev} (numpy {fm}); solves "
+        f"(NumPC 4): " + ", ".join(
+            f"{k} {v['wall_s']:.2f}s, {v['evals']} evaluations, alpha "
+            f"{v['alpha']:.6g}" for k, v in solves.items()))
+    res["device_llk"] = dict(
+        markers=int(est._counts.shape[0]), rel_err=errs, eval_ms=eval_ms,
+        graph_ms=graph_ms, call_ms=call_ms, numpy_ms=numpy_ms, cli_s=llk_s,
+        cli_evals=cli_evals, freemix=fm_dev, solves=solves)
+    return res
+
+
 # ----------------------------------------------------------------- main
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
-                    help="comma list of kernels,small,production,program "
+                    help="comma list of kernels,small,production,program,"
+                    "pipeline "
                     "(the card phase always runs); the kernels and ok lines "
                     "are printed only when all of them ran")
     ap.add_argument("--seed", type=int, default=0)
@@ -1191,6 +1541,11 @@ def main() -> int:
                     work, logf, args.seed, args.pairs)
             if "program" in phases:
                 result["program"] = phase_program(
+                    work, logf, args.seed, args.pairs,
+                    result.get("small", {}).get("world"),
+                    result.get("production", {}).get("world"))
+            if "pipeline" in phases:
+                result["pipeline"] = phase_pipeline(
                     work, logf, args.seed, args.pairs,
                     result.get("small", {}).get("world"),
                     result.get("production", {}).get("world"))

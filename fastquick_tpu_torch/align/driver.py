@@ -588,15 +588,14 @@ def _run_align(argv: list[str]) -> int:
            "(cpu runs the plain PyTorch versions of the kernels)")
     pl.group("Multi-host sharding")
     pl.add("shard_out", False, "write <out_prefix>.shard.npz accumulator "
-           "state instead of final statistics (not yet ported)")
+           "state instead of final statistics (merge shards with "
+           "`fastquick-torch merge`)")
     pl.read(argv)
     pl.status()
 
     from ..utils.device import resolve_device
 
     device = resolve_device(pl["device"])  # raises for cuda without CUDA
-    if pl["shard_out"]:
-        error("--shard_out is not yet ported to fastquick_tpu_torch")
 
     if pl["out_prefix"] == "Empty":
         error("--out_prefix is required")
@@ -777,8 +776,56 @@ def _run_align(argv: list[str]) -> int:
     notice("BAM/SAM writer thread busy: %.2fs (record packing + deflate, "
            "overlapped with the phases above)", sam.busy_s)
     t_tmp = realtime()
-    collector.process_core(prefix, opt)
-    notice("Calculate distributions... %f sec", realtime() - t_tmp)
+    if pl["shard_out"]:
+        from ..stats.shard import save_shard
+
+        # save_shard's flush_dense also adds the device-QC dense sums
+        save_shard(collector, prefix + ".shard.npz")
+        notice("Shard state written to %s.shard.npz (merge with "
+               "`fastquick-torch merge`)", prefix)
+    else:
+        collector.process_core(prefix, opt)
+        notice("Calculate distributions... %f sec", realtime() - t_tmp)
     notice("Real time: %.3f sec", realtime() - t_real)
     return 0
 
+
+def run_merge(argv: list[str]) -> int:
+    """fastquick-torch merge: combine shard accumulator states + insert-size
+    tables from N independent align runs into the final statistics."""
+    pl = ParamList()
+    pl.add("index_prefix", "Empty", "index prefix (as used by the shards)")
+    pl.add("out_prefix", "Empty", "output prefix for the merged statistics")
+    shard_prefixes = pl.read(argv)
+    pl.status()
+    if pl["index_prefix"] == "Empty" or pl["out_prefix"] == "Empty":
+        error("--index_prefix and --out_prefix are required")
+    if not shard_prefixes:
+        error("pass the shard output prefixes as positional arguments")
+
+    from ..stats.shard import merge_shards
+
+    new_ref = pl["index_prefix"] + ".FASTQuick.fa"
+    params = read_param(new_ref)
+    opt = GapOpt()
+    opt.num_variant_long = params["NUM_VAR_LONG"]
+    opt.num_variant_short = params["NUM_VAR_SHORT"]
+    opt.flank_len = params["SHORT_FLANK_LENGTH"]
+    opt.flank_long_len = params["LONG_FLANK_LENGTH"]
+    target_region = params["TARGET_REGION_PATH"]
+    _, genome_size, n_size = load_contig_sizes(params["REFERENCE_PATH"])
+
+    collector = StatCollector()
+    collector.restore_vcf_sites(new_ref, opt)
+    collector.set_genome_size(genome_size, n_size)
+    if target_region != "Empty":
+        collector.set_target_region(target_region)
+
+    merge_shards(collector, [p + ".shard.npz" for p in shard_prefixes])
+    with open(pl["out_prefix"] + ".InsertSizeTable", "w") as out:
+        for p in shard_prefixes:
+            with open(p + ".InsertSizeTable") as fh:
+                out.write(fh.read())
+    collector.process_core(pl["out_prefix"], opt)
+    notice("Merged %d shards into %s", len(shard_prefixes), pl["out_prefix"])
+    return 0

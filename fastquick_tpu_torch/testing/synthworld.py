@@ -207,3 +207,29 @@ def build_production_world(tmp, seed: int = 0, n_short: int = 9000,
         assert rc == 0
         out["idx_prefix"] = idx_prefix
     return out
+
+
+def write_panel(world: dict, n_samples: int = 60, every: int = 4,
+                seed: int = 0) -> str:
+    """The SVD reference panel of tools/stress_production_scale.py:135-149
+    for a world of this module: `n_samples` samples genotyped at every
+    `every`-th marker of the world's cand.vcf (its REF and ALT), each
+    genotype drawn Binomial(2, 0.3) from `seed`.  Writes and returns
+    <tmp>/panel.vcf (``pop+con --RefVCF`` writes its SVD files beside
+    it)."""
+    from ..io.vcf import VcfReader
+
+    rng = np.random.default_rng(seed)
+    path = os.path.join(world["tmp"], "panel.vcf")
+    with VcfReader(world["cand"]) as r:
+        recs = list(r)[::every]
+    with open(path, "w") as fh:
+        fh.write("##fileformat=VCFv4.2\n")
+        fh.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
+                 + "\t".join(f"S{k}" for k in range(n_samples)) + "\n")
+        gts = np.array(["0/0", "0/1", "1/1"])
+        for rec in recs:
+            gt = "\t".join(gts[rng.binomial(2, 0.3, n_samples)])
+            fh.write(f"{rec.chrom}\t{rec.pos}\trs{rec.pos}\t{rec.ref}\t"
+                     f"{rec.alt}\t.\tPASS\t.\tGT\t{gt}\n")
+    return path

@@ -2,10 +2,10 @@
 
 Every framework-free module that fastquick_tpu_torch carries over must
 equal its original after the single substitution fastquick_tpu ->
-fastquick_tpu_torch; align/driver.py, align/pe.py and
-testing/synthworld.py are rewritten in part and only checked for
-existence.  A static check holds the port (and chip_smoke.py) to its
-rule: nothing imports jax or the fastquick_tpu package.
+fastquick_tpu_torch; the modules of REWRITTEN are rewritten in part and
+only checked for existence.  A static check holds the port (and
+chip_smoke.py) to its rule: nothing imports jax or the fastquick_tpu
+package.
 """
 
 import ast
@@ -27,12 +27,15 @@ COPIES = (
     "align/rand.py", "align/refine.py", "align/seqs.py", "align/sam.py",
     "align/engine.py",
     "stats/__init__.py", "stats/collector.py", "stats/sites.py",
-    "stats/insertsize.py", "stats/device_merge.py",
+    "stats/insertsize.py", "stats/device_merge.py", "stats/shard.py",
+    "pop/__init__.py", "pop/baq.py", "pop/pileup.py", "pop/svd.py",
+    "pop/estimator.py", "report/__init__.py", "report/report.py",
     "native/__init__.py", "native/aligner.cpp", "native/fastq_loader.cpp",
     "native/sw.cpp",
     "testing/__init__.py", "ops/__init__.py",
 )
-REWRITTEN = ("align/driver.py", "align/pe.py", "testing/synthworld.py")
+REWRITTEN = ("align/driver.py", "align/pe.py", "testing/synthworld.py",
+             "pop/device_llk.py", "pop/driver.py", "pipeline.py")
 
 
 @pytest.mark.parametrize("rel", COPIES)
