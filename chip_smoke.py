@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive fastquick_tpu_torch's pipeline on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # all phases, one card, ~10 minutes
+    python3 chip_smoke.py            # all phases, one card, ~12 minutes
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -85,10 +85,28 @@ Phases (any failure raises and the script exits non-zero):
    Then ``pop+con --DeviceLLK --device cuda`` on the same Pileup (FREEMIX
    within 5e-3 of numpy's); DeviceLLK on the card within rel 2e-5 of the
    numpy likelihood at three points; one evaluation's time on the card
-   and in numpy, and the evaluations and wall time of each solve.
+   and in numpy, and the evaluations and wall time of each solve;
+7. mesh: ranks that share the card, started by parallel/mesh.spawn with
+   gloo collectives on host copies, after the kernel and native libraries
+   are built here.  The small world at mesh-4 (2 x 2) against mesh-2
+   (qc_program.dryrun_multichip): all 13 product files byte-identical.
+   The production files at mesh-2, run_with_fill with the resident
+   kernel at qc_full's defaults and with the scan kernel, each rank
+   redoing its own fallback reads with the native engine: every
+   accumulator (n_reads aside), n_pcr_dup, row, _drand_state and the 13
+   product files identical to phase 5's single-device runs (made here
+   when phase 5 did not run), every rank equal, and each rank's width,
+   search (chain 4) or scan and drand48 kernels launched.  Each rank logs
+   its world's load time, stage times (with "exchange": the collectives
+   and the merge, waiting for the slowest rank included), whole wall
+   time, launches and peak device memory.  Then DeviceLLK sharded over 2
+   ranks on phase 6's pileup (a seeded panel's when phase 6 did not
+   run): within rel 1e-5 of the unsharded one at three points, and
+   ``pop+con --DeviceLLK`` in each rank, sharded by the driver, FREEMIX
+   within 5e-3 of numpy's.
 
 The last two lines of stdout are the kernels line and
-{"ok": true, "device": {...}}, printed only when phases 2-6 all ran
+{"ok": true, "device": {...}}, printed only when phases 2-7 all ran
 (``--phases`` picks a subset for debugging).  Numbers and logs also go to
 chiprun_out/chip_smoke/.  Without CUDA, or outside a checkout of the
 repository, it exits non-zero and prints no result.
@@ -101,6 +119,7 @@ import contextlib
 import filecmp
 import json
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -132,7 +151,8 @@ ALL_OUTPUTS = ("Summary", "DepthDist", "GCDist", "EmpRepDist",
                "SexChromInfo", "Pileup", "vcf", "InsertSizeTable", "bam")
 
 # after the card phase
-ALL_PHASES = ("kernels", "small", "production", "program", "pipeline")
+ALL_PHASES = ("kernels", "small", "production", "program", "pipeline",
+              "mesh")
 
 KERNELS = {
     "width": ("fastquick_tpu_torch/csrc/width.cu",
@@ -918,16 +938,19 @@ PROGRAM_COUNTERS = ("n_mapped", "n_eligible", "n_pair_reads", "n_pcr_dup",
                     "pileup_ovf", "n_pair_ovf")
 
 
-def _same_program(a: tuple, b: tuple, what: str) -> None:
+def _same_program(a: tuple, b: tuple, what: str, skip=()) -> None:
     """Two one-program runs' (stats, rows) identical: every accumulator and
     row field exactly, the insert-size estimate's floats within 1e-6
-    relative."""
+    relative; stats are torch or numpy; keys in skip are not held."""
     import numpy as np
+
+    def host(v):
+        return v.cpu().numpy() if hasattr(v, "cpu") else np.asarray(v)
 
     (sa, ra), (sb, rb) = a, b
     bad = sorted(set(sa) ^ set(sb)) + sorted(set(ra) ^ set(rb))
-    for k in set(sa) & set(sb):
-        x, y = sa[k].cpu().numpy(), sb[k].cpu().numpy()
+    for k in set(sa) & set(sb) - set(skip):
+        x, y = host(sa[k]), host(sb[k])
         if k == "_ii":
             if not np.allclose(x, y, rtol=1e-6, atol=0):
                 bad.append(k)
@@ -937,18 +960,6 @@ def _same_program(a: tuple, b: tuple, what: str) -> None:
             if not np.array_equal(ra[k], rb[k])]
     if bad:
         raise AssertionError(f"{what}: differ in {sorted(bad)}")
-
-
-def _same_files(a: list, b: list, what: str) -> int:
-    names = [[Path(f).name.split(".", 1)[1] for f in x] for x in (a, b)]
-    if names[0] != names[1] or len(a) < 12:
-        raise AssertionError(f"{what}: product files {names[0]} vs "
-                             f"{names[1]}")
-    diff = [Path(x).name for x, y in zip(a, b)
-            if not filecmp.cmp(x, y, shallow=False)]
-    if diff:
-        raise AssertionError(f"{what}: {diff} differ")
-    return len(a)
 
 
 def _stage_line(times: dict) -> str:
@@ -1097,8 +1108,8 @@ def phase_program(work: Path, logf, seed: int, pairs: int,
             f"{out[device]['launches']}")
     _same_program(out["cuda"]["run"], out["cpu"]["run"],
                   "small world, cuda vs cpu")
-    n_files = _same_files(out["cuda"]["files"], out["cpu"]["files"],
-                          "small world, cuda vs cpu")
+    n_files = qp.same_files(out["cuda"]["files"], out["cpu"]["files"],
+                            "small world, cuda vs cpu")
     log(f"program small world: cuda run equal to the cpu run in every "
         f"accumulator and row; {n_files} product files byte-identical")
     res["small"] = {dev: dict(wall_s=o["wall_s"], times=o["times"],
@@ -1146,7 +1157,14 @@ def phase_program(work: Path, logf, seed: int, pairs: int,
                      if k not in ("first_pass", "host_redo"))
         counters = {k: int(stats[k]) for k in PROGRAM_COUNTERS}
         runs[name] = dict(run=(stats, rows), files=files)
+        # the mesh phase holds its mesh-2 runs to this one
+        saved = d / f"prod_{name}.pkl"
+        with open(saved, "wb") as fh:
+            pickle.dump(dict(stats={k: v.cpu().numpy()
+                                    for k, v in stats.items()},
+                             rows=rows, files=files), fh)
         res[name] = dict(opts=opts, fallback_first=fb1, wall_s=wall,
+                         saved=str(saved),
                          step_s=step_s, times=times, launches=launches,
                          reads_per_s=n_reads / wall,
                          step_reads_per_s=n_reads / step_s, **counters)
@@ -1163,8 +1181,9 @@ def phase_program(work: Path, logf, seed: int, pairs: int,
         del calls
     _same_program(runs["resident"]["run"], runs["scan"]["run"],
                   "production, resident vs scan")
-    n_files = _same_files(runs["resident"]["files"], runs["scan"]["files"],
-                          "production, resident vs scan")
+    n_files = qp.same_files(runs["resident"]["files"],
+                            runs["scan"]["files"],
+                            "production, resident vs scan")
     log(f"program production: resident and scan runs equal in every "
         f"accumulator, n_pcr_dup and row; {n_files} product files "
         f"byte-identical")
@@ -1405,7 +1424,8 @@ def phase_pipeline(work: Path, logf, seed: int, pairs: int,
         f"launches {launches}; FREEMIX {fm}; Ancestry {_ancestry(out)}")
     res["production"] = dict(all=has_mpl, wall_s=wall, stages=times,
                              launches=launches, freemix=fm,
-                             ancestry=_ancestry(out))
+                             ancestry=_ancestry(out), panel=panel,
+                             pileup=out + ".Pileup")
 
     # ---- production: the device likelihood on the card ----
     n_eval = [0]
@@ -1498,6 +1518,204 @@ def phase_pipeline(work: Path, logf, seed: int, pairs: int,
     return res
 
 
+# ------------------------------------------------------------- phase 7
+
+
+# the sharded likelihood against the unsharded one: float32 sums in
+# another order (the reference's mesh tolerance, tests/test_device_llk.py)
+MESH_LLK_REL = 1e-5
+
+
+def _rank_line(r: dict, run: str) -> str:
+    x = r["runs"][run]
+    peak = "not measured" if r["peak_bytes"] is None \
+        else f"{r['peak_bytes'] / 2**30:.2f} GiB"
+    return (f"rank {r['rank']}: loaded in {r['load_s']:.1f}s, whole "
+            f"{x['wall_s']:.2f}s, stages {_stage_line(x['times'])}, "
+            f"launches {x['launches']}, peak device memory {peak}")
+
+
+def phase_mesh(work: Path, logf, seed: int, pairs: int,
+               small_w: dict | None = None, prod_w: dict | None = None,
+               program: dict | None = None,
+               pipeline: dict | None = None, dev: str = "cuda") -> dict:
+    """The mesh: ranks that share the card (parallel/mesh.spawn, gloo
+    collectives on host copies), the kernel and native libraries built
+    before any rank starts.  dev: every rank's device ("cpu" rehearses
+    the phase with the plain versions)."""
+    import torch
+
+    from fastquick_tpu_torch import qc_program as qp
+    from fastquick_tpu_torch.kernels import build
+    from fastquick_tpu_torch.parallel.mesh import spawn
+    from fastquick_tpu_torch.pop.device_llk import DeviceLLK
+    from fastquick_tpu_torch.pop.estimator import ContaminationEstimator
+    from fastquick_tpu_torch.pop.pileup import read_pileup_file
+    from fastquick_tpu_torch.testing import mesh_cases, popcon_cases
+    from fastquick_tpu_torch.testing.synthworld import (
+        build_production_world,
+        build_synth_pe_world,
+    )
+
+    build.cuda_library()  # no rank compiles: they load these builds
+    qp.build_native()
+    torch.cuda.empty_cache()
+    d = work / "mesh"
+    d.mkdir()
+    res: dict = {}
+    with contextlib.redirect_stderr(logf):
+        if small_w is None:
+            (work / "small").mkdir(exist_ok=True)
+            small_w = build_synth_pe_world(work / "small")
+        if prod_w is None:
+            (work / "prod").mkdir(exist_ok=True)
+            prod_w = build_production_world(work / "prod", seed=seed,
+                                            n_pairs=pairs)
+
+    # ---- the small world: mesh-4 as 2 x 2 against mesh-2 ----
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(logf), contextlib.redirect_stdout(logf):
+        dry = qp.dryrun_multichip(4, device=dev, world=small_w)
+    wall = time.perf_counter() - t0
+    for nd, ranks in dry["runs"].items():
+        for r in ranks:
+            layout = " (2 x 2)" if nd == 4 else ""
+            log(f"mesh small world, mesh-{nd}{layout}, "
+                f"{_rank_line(r, 'synth')}")
+    log(f"mesh small world: mesh-4 (2 x 2) against mesh-2, "
+        f"{2 * dry['runs'][4][0]['n_pairs']} reads, resident kernel, gloo "
+        f"collectives: {len(dry['files'])} product files byte-identical "
+        f"({dry['n_mapped']} mapped, {dry['n_pair_reads']} proper-pair "
+        f"reads); {wall:.1f}s with the ranks' start and loads")
+    res["small"] = dict(wall_s=wall, ranks={
+        nd: [dict(load_s=r["load_s"], peak_bytes=r["peak_bytes"],
+                  **{k: r["runs"]["synth"][k]
+                     for k in ("wall_s", "times", "launches")})
+             for r in ranks] for nd, ranks in dry["runs"].items()})
+
+    # ---- production: mesh-2 run_with_fill against one device ----
+    runs = [dict(name="resident", kernel="resident", fill=True,
+                 opts=dict(pool=QC_POOL, chain=QC_CHAIN,
+                           step_cap=QC_CAP_PER_BASE * 160)),
+            dict(name="scan", kernel="scan", fill=True,
+                 opts=dict(pool=512, chain=1, step_cap=768))]
+    spec = dict(tmp=str(prod_w["tmp"]), idx_prefix=prod_w["idx_prefix"],
+                fq1=prod_w["fq1"], fq2=prod_w["fq2"], device=dev, L=160,
+                bitmaps=True, pileup_cap=64, engine="native", runs=runs)
+    single = {}
+    if program is not None:
+        for run in runs:
+            with open(program[run["name"]]["saved"], "rb") as fh:
+                single[run["name"]] = pickle.load(fh)
+    else:  # phase 5 did not run: the single-device runs here
+        (d / "single").mkdir()
+        with contextlib.redirect_stderr(logf):
+            one = qp.mesh_job(None, dict(spec, out_dir=str(d / "single")))
+        torch.cuda.empty_cache()
+        single = one["runs"]
+    (d / "prod").mkdir()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(logf):
+        ranks = spawn(qp.mesh_job, 2, (dict(spec, out_dir=str(d / "prod")),))
+    wall = time.perf_counter() - t0
+    res["production"] = dict(wall_s=wall, ranks=[])
+    for r in ranks:
+        res["production"]["ranks"].append(dict(
+            rank=r["rank"], load_s=r["load_s"], peak_bytes=r["peak_bytes"],
+            runs={k: {f: v[f] for f in ("wall_s", "times", "launches",
+                                        "fallback_first")}
+                  for k, v in r["runs"].items()}))
+    for run in runs:
+        name = run["name"]
+        a, b = ranks[0]["runs"][name], ranks[1]["runs"][name]
+        one = single[name]
+        for r in ranks:
+            x = r["runs"][name]
+            need = ("width", "search_chain" if name == "resident" else "scan",
+                    "drand48")
+            # on the CPU (a rehearsal) the wrappers launch nothing
+            if dev == "cuda" and not all(x["launches"][k] for k in need):
+                raise AssertionError(f"mesh production {name}, rank "
+                                     f"{r['rank']} launched {x['launches']}")
+            if int(x["stats"]["n_fallback"]):
+                raise AssertionError(f"mesh production {name}: fallback "
+                                     "reads left after the fill pass")
+            log(f"mesh production, {name} kernel, {_rank_line(r, name)}; "
+                f"first pass {x['fallback_first']} fallback reads")
+        _same_program((a["stats"], a["rows"]), (b["stats"], b["rows"]),
+                      f"mesh production {name}: rank 1 against rank 0")
+        # n_reads counts padding rows; the production batch has none, but
+        # the bar is the reference's
+        _same_program((one["stats"], one["rows"]), (a["stats"], a["rows"]),
+                      f"mesh production {name} against one device",
+                      skip=("n_reads",))
+        n_files = qp.same_files(one["files"], a["files"],
+                                f"mesh production {name} against one device")
+        log(f"mesh production, {name} kernel: mesh-2 run_with_fill over "
+            f"{2 * ranks[0]['n_pairs']} reads equal to the single-device run "
+            f"in every accumulator, n_pcr_dup, row and _drand_state; "
+            f"{n_files} product files byte-identical")
+    log(f"mesh production: both runs {wall:.1f}s with the ranks' start and "
+        "loads")
+
+    # ---- the sharded likelihood: 2 ranks on phase 6's pileup ----
+    if pipeline is not None:
+        svd, pile, fm_np = (pipeline["panel"], pipeline["pileup"],
+                            pipeline["freemix"])
+        what = "phase 6's production panel and pileup"
+    else:  # phase 6 did not run: a seeded panel and a simulated pileup
+        svd = popcon_cases.write_panel(str(d / "panel.vcf"), seed=seed)
+        _cli(["pop+con", "--RefVCF", svd], logf)
+        pile = popcon_cases.simulate_pileup(svd, str(d / "s.Pileup"),
+                                            seed=seed, alpha_true=0.1)
+        _cli(["pop+con", "--DisableSanityCheck", "--PileupFile", pile,
+              "--SVDPrefix", svd, "--Output", str(d / "numpy")], logf)
+        fm_np = _freemix(str(d / "numpy"))
+        what = "a seeded panel and a simulated pileup"
+    est = popcon_cases.estimator_from_files(
+        ContaminationEstimator, read_pileup_file, svd, pile)
+    est._prepare()
+    llk = DeviceLLK(est._counts, est._UD_act, est._means_act, device=dev)
+    want = [llk(pc, pc, a) for pc, a in LLK_POINTS]
+    case = dict(svd=svd, pileup=pile, device=dev, points=LLK_POINTS,
+                cli=str(d / "llk"), reps=LLK_REPS)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(logf), contextlib.redirect_stdout(logf):
+        ranks = spawn(mesh_cases.llk_case, 2, (case,))
+    wall = time.perf_counter() - t0
+    errs = []
+    for r, got in enumerate(ranks):
+        if not got["cli_sharded"]:
+            raise AssertionError(f"rank {r}: pop+con --DeviceLLK ran "
+                                 "unsharded")
+        for g, w in zip(got["values"], want):
+            errs.append(abs(g - w) / abs(w))
+        fm = _freemix(got["cli_prefix"])
+        if abs(fm - fm_np) > 5e-3:
+            raise AssertionError(f"rank {r}: sharded --DeviceLLK FREEMIX "
+                                 f"{fm} against numpy's {fm_np}")
+    if max(errs) > MESH_LLK_REL:
+        raise AssertionError(f"sharded DeviceLLK against unsharded: rel "
+                             f"{max(errs)}")
+    log(f"mesh DeviceLLK on {what}: {ranks[0]['markers']} markers over 2 "
+        f"ranks, rel err against the unsharded DeviceLLK at the 3 points "
+        f"{['%.2e' % e for e in errs[:3]]} (<= {MESH_LLK_REL}); a call "
+        + ", ".join(f"rank {r} {g['call_ms']:.4f} ms" for r, g in
+                    enumerate(ranks))
+        + " (host clock, the gloo sum included); pop+con --DeviceLLK "
+        + ", ".join(f"rank {r} {g['cli_s']:.2f}s FREEMIX "
+                    f"{_freemix(g['cli_prefix'])}" for r, g in
+                    enumerate(ranks))
+        + f" (numpy {fm_np}); {wall:.1f}s with the ranks' start")
+    res["device_llk"] = dict(source=what, markers=ranks[0]["markers"],
+                             rel_err=errs, wall_s=wall,
+                             call_ms=[g["call_ms"] for g in ranks],
+                             cli_s=[g["cli_s"] for g in ranks],
+                             freemix=[_freemix(g["cli_prefix"])
+                                      for g in ranks], freemix_numpy=fm_np)
+    return res
+
+
 # ----------------------------------------------------------------- main
 
 
@@ -1505,7 +1723,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma list of kernels,small,production,program,"
-                    "pipeline "
+                    "pipeline,mesh "
                     "(the card phase always runs); the kernels and ok lines "
                     "are printed only when all of them ran")
     ap.add_argument("--seed", type=int, default=0)
@@ -1549,6 +1767,13 @@ def main() -> int:
                     work, logf, args.seed, args.pairs,
                     result.get("small", {}).get("world"),
                     result.get("production", {}).get("world"))
+            if "mesh" in phases:
+                result["mesh"] = phase_mesh(
+                    work, logf, args.seed, args.pairs,
+                    result.get("small", {}).get("world"),
+                    result.get("production", {}).get("world"),
+                    result.get("program"),
+                    result.get("pipeline", {}).get("production"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
         (OUT / "result.json").write_text(json.dumps(result, indent=1,

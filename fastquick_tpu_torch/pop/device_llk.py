@@ -20,11 +20,21 @@ setting is: the analog of the reference's ``Precision.HIGHEST``.
 ``device=None`` means DEVICE_DEFAULT (``"cuda"``), resolved by
 utils/device.resolve_device, which raises where torch sees no CUDA device;
 ``pop+con --device cpu`` sets DEVICE_DEFAULT for its run.  There is no
-silent CPU path.  The marker-sharded sum over a mesh is not ported: any
-``mesh`` raises.
+silent CPU path.
+
+Over a parallel/mesh.Mesh the sum is marker-sharded, as the reference's
+shard_map + psum: the markers are padded to a multiple of the ranks with
+zero counts, af = 0.5 (means 1, UD 0) and contribute exactly 0; each rank
+keeps its block of markers and the scalar is summed over the mesh's
+groups (the chip level first).  Every rank then holds the same value, so
+an optimizer driven by it takes the same path on every rank.  The ranks
+must hold the same inputs: the constructor compares a digest of them
+over the mesh and raises on every rank where they differ.
 """
 
 from __future__ import annotations
+
+import hashlib
 
 import numpy as np
 import torch
@@ -36,21 +46,67 @@ from .estimator import LK_ERR, LK_NOERR, MAX_AF, MIN_AF, N_CLASS, N_QBINS
 DEVICE_DEFAULT = "cuda"
 
 
-class DeviceLLK:
-    """llk(pc1, pc2, alpha) -> float, in float32 on one torch device.
+def _same_inputs(mesh, axes: tuple, dev: torch.device, arrays) -> None:
+    """Raise ValueError on every rank unless every rank of the mesh's
+    `axes` was given the same arrays: a rank estimating another sample
+    would add its likelihood into this one's."""
+    h = hashlib.blake2b(digest_size=8)
+    for a in arrays:
+        a = None if a is None else np.ascontiguousarray(a)
+        h.update(repr(None if a is None else (a.dtype.str, a.shape))
+                 .encode())
+        if a is not None:
+            h.update(a.tobytes())
+    mine = torch.tensor(int.from_bytes(h.digest(), "little", signed=True),
+                        dtype=torch.int64, device=dev)
+    for ax in axes:
+        if (mesh.all_gather(mine, ax) != mine).any():
+            raise ValueError(
+                f"DeviceLLK over the mesh: the ranks of axis {ax!r} hold "
+                f"different counts, UD, means or known_af; every rank must "
+                f"estimate the same sample")
 
-    Counts, UD, means and known_af are uploaded once, here; each call moves
-    only pc1, pc2 and alpha to the device."""
+
+class DeviceLLK:
+    """llk(pc1, pc2, alpha) -> float, in float32 on one torch device;
+    optionally marker-sharded over a mesh's `axis` (a name or a tuple).
+
+    Counts, UD, means and known_af are uploaded once, here (on a mesh,
+    this rank's block); each call moves only pc1, pc2 and alpha to the
+    device."""
 
     def __init__(self, counts: np.ndarray, UD: np.ndarray, means: np.ndarray,
                  known_af: np.ndarray | None = None, mesh=None,
-                 axis: str = "dp", device: str | torch.device | None = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "DeviceLLK over a mesh (the marker-sharded sum) is not "
-                "ported yet: it belongs to the mesh slice of the port")
+                 axis: str | tuple = "dp",
+                 device: str | torch.device | None = None):
+        self._mesh, self._axes = mesh, ()
         self.device = resolve_device(DEVICE_DEFAULT if device is None
                                      else device)
+        if mesh is not None:
+            from ..parallel.mesh import Mesh, local_rows
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.mesh.Mesh, not "
+                                f"{type(mesh).__name__}")
+            self._axes = (axis,) if isinstance(axis, str) else tuple(axis)
+            _same_inputs(mesh, self._axes, self.device,
+                         (counts, UD, means, known_af))
+            n = int(np.prod([mesh.axis_size(a) for a in self._axes]))
+            M, pad = counts.shape[0], (-counts.shape[0]) % n
+            if pad:
+                counts = np.concatenate(
+                    [counts, np.zeros((pad,) + counts.shape[1:],
+                                      counts.dtype)])
+                UD = np.concatenate([UD, np.zeros((pad,) + UD.shape[1:],
+                                                  UD.dtype)])
+                means = np.concatenate([means, np.ones(pad, means.dtype)])
+                if known_af is not None:
+                    known_af = np.concatenate(
+                        [known_af, np.full(pad, 0.5, known_af.dtype)])
+            lo, per = local_rows(mesh, M + pad, self._axes)
+            counts, UD, means = (a[lo: lo + per] for a in (counts, UD, means))
+            if known_af is not None:
+                known_af = known_af[lo: lo + per]
         dev, f32 = self.device, torch.float32
 
         # per-bin error rate and conditional-LK tables tiled over bins
@@ -99,7 +155,10 @@ class DeviceLLK:
         m = tot.max(dim=1).values
         ll = m + torch.log(torch.exp(tot - m[:, None]).sum(dim=1))
         # all-underflow markers are dropped (reference marker_lk>0 gate)
-        return torch.where(torch.isfinite(ll), ll, 0.0).sum()
+        ll = torch.where(torch.isfinite(ll), ll, 0.0).sum()
+        for ax in reversed(self._axes):  # the chip level first
+            ll = self._mesh.psum(ll, ax)
+        return ll
 
     def __call__(self, pc1, pc2, alpha: float) -> float:
         def up(x):

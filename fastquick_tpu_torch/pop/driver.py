@@ -9,7 +9,12 @@ Counterpart of fastquick_tpu/pop/driver.py.  ``--DeviceLLK`` evaluates the
 likelihood with pop/device_llk.DeviceLLK on the torch device named by
 ``--device`` (cuda, the default, or cpu for the plain PyTorch path); cuda
 without a CUDA device raises.  The flag sets device_llk.DEVICE_DEFAULT for
-the run and restores it however the run ends."""
+the run and restores it however the run ends.  Where torch.distributed is
+initialised with more than one rank, ``--DeviceLLK`` shards the markers
+over them (parallel/mesh.make_mesh over the default group), as the
+reference does when it sees more than one device; every rank runs the
+whole command on the same sample, and DeviceLLK raises on every rank
+where their inputs differ."""
 
 from __future__ import annotations
 
@@ -103,6 +108,12 @@ def _run_popcon(argv: list[str]) -> int:
 
         # raises for cuda without CUDA, before any input is read
         device_llk.DEVICE_DEFAULT = resolve_device(pl["device"])
+        import torch.distributed as dist
+
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            from ..parallel.mesh import make_mesh
+
+            est.device_mesh = make_mesh()
     est.is_heter = not pl["WithinAncestry"]
     est.is_sanity_check_disabled = pl["DisableSanityCheck"]
     est.read_choose_bed(bed_path)

@@ -1,21 +1,33 @@
-"""The one-program QC step (ops/qc_full.qc_step_full) on one device: worlds,
-runs and the product files.
+"""The one-program QC step (ops/qc_full.qc_step_full) on one device or over
+a mesh of ranks: worlds, runs and the product files.
 
-Counterpart of the single-device half of the reference's
-``__graft_entry__.py``: ``entry`` is its compile-check entry, and
-``world_from_files`` / ``run_single`` / ``write_product`` its dry run's
-world, step and writers, with ``device`` chosen by the caller (cuda by
-default; "cpu" runs every kernel's plain version).  ``run_with_fill`` is
-the two-dispatch recipe that makes the drand48 stream exact on a batch
-with fallback reads: run once, redo the fallback reads with the exact
-native (else host) engine, pack their hit lists and run again with them
-filled in.
+Counterpart of the reference's ``__graft_entry__.py``: ``entry`` is its
+compile-check entry, ``world_from_files`` / ``run_single`` /
+``write_product`` its dry run's world, step and writers, with ``device``
+chosen by the caller (cuda by default; "cpu" runs every kernel's plain
+version), and ``mesh_stats`` / ``diff_world`` / ``dryrun_multichip`` its
+mesh half (``_mesh_stats``, ``_diff_world``, ``dryrun_multichip``): each
+rank runs its block of the rows through parallel/mesh.
+make_sharded_qc_full_step.  ``run_with_fill`` is the two-dispatch recipe
+that makes the drand48 stream exact on a batch with fallback reads: run
+once, redo the fallback reads with the exact native (else host) engine,
+pack their hit lists and run again with them filled in (on a mesh, each
+rank redoes its own rows).
 
     from fastquick_tpu_torch import qc_program as qp
     world = qp.world_from_files(tmp, idx_prefix, fq1, fq2, "a_1.fq",
                                 "a_2.fq", device="cpu")
     stats, rows = qp.run_single(world)
     qp.write_product(prefix, stats, rows, world["names"], world)
+
+Over two gloo ranks on the CPU (every rank loads the world and runs its
+rows; rank 0 writes the files):
+
+    from fastquick_tpu_torch.parallel.mesh import spawn
+    spec = dict(tmp=tmp, idx_prefix=idx_prefix, fq1=fq1, fq2=fq2,
+                device="cpu", out_dir=out, runs=[dict(name="a",
+                kernel="resident", fill=True)])
+    results = spawn(qp.mesh_job, 2, (spec,))
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ from .ops.qc_full import (
     qc_step_full,
     synthetic_site_tables,
 )
+from .parallel.mesh import local_rows, make_sharded_qc_full_step
 from .utils.device import resolve_device
 
 _STATUS = ["PropPair", "PartialPair", "FwdOnly", "RevOnly", "NotPair",
@@ -280,30 +293,234 @@ def default_engine(idx):
         return HostEngine(idx)
 
 
+def _shard(world, mesh):
+    """(B, start, rows) of this rank's block of the world's B rows, padded
+    at the end of the batch to a multiple of 2 * mesh.size so that no pair
+    straddles two ranks (the padding lands in the last ranks)."""
+    B = world["arrays"][0].shape[0]
+    if mesh is None:
+        return B, 0, B
+    return (B, *local_rows(mesh, B + (-B) % (2 * mesh.size)))
+
+
+def mesh_stats(world, mesh=None, pileup_cap: int = 64,
+               kernel: str = "resident", times: dict | None = None,
+               fb_fill=None, per_read: bool = False):
+    """The world's batch as one pair-mode step: run_single when mesh is
+    None, else over the mesh's ranks (parallel/mesh.
+    make_sharded_qc_full_step), this rank running its block of the rows
+    (_shard; padding rows are all-N with length 0).  fb_fill: this rank's
+    rows' fill.  Returns (stats, rows[, per_read]) as run_single does: the
+    merged accumulators with n_pcr_dup, the per-pair rows of the B // 2
+    real pairs, and this rank's per-read flags."""
+    if mesh is None:
+        return run_single(world, pileup_cap, kernel, times, fb_fill,
+                          per_read=per_read)
+    B, lo, nb = _shard(world, mesh)
+
+    def local(a, fill):
+        part = a[lo: min(lo + nb, B)]
+        pad = nb - part.shape[0]
+        return torch.cat([part, part.new_full((pad,) + tuple(a.shape[1:]),
+                                              fill)]) if pad else part
+
+    seqs, rseqs, quals, lens = world["arrays"]
+    step = make_sharded_qc_full_step(
+        mesh, world["fm"], world["tables"], world["opt_args"],
+        bitmaps=world.get("bitmaps"), thresh=world.get("thresh", 3),
+        pileup_cap=pileup_cap, axis=mesh.axis_names,
+        md_table=world["md_table"], pair_mode=True, kernel=kernel)
+    out = step(local(seqs, 4), local(rseqs, 4), local(quals, 0),
+               local(lens, 0), fb_fill=fb_fill, times=times,
+               return_per_read=per_read)
+    stats, pr = out if per_read else (out, None)
+    rows = {k: v[: B // 2].cpu().numpy()
+            for k, v in stats.pop("_pair_rows").items()}
+    return (stats, rows, pr) if per_read else (stats, rows)
+
+
 def run_with_fill(world, engine=None, pileup_cap: int = 64,
-                  kernel: str = "resident", times: dict | None = None):
+                  kernel: str = "resident", times: dict | None = None,
+                  mesh=None):
     """The two-dispatch recipe: run the step once, redo its fallback reads
     with `engine` (default_engine), pack their hit lists (pack_host_hits)
     and run again with them as fb_fill, so every read carries exact hits
-    and the drand48 stream consumes them in read order.  Returns (stats,
-    rows, the first pass's fallback count).  times: the second pass's
-    stages plus "first_pass" and "host_redo" (seconds)."""
+    and the drand48 stream consumes them in read order.  On a mesh each
+    rank redoes the fallback reads of its own rows and the second pass
+    takes each rank's fill.  Returns (stats, rows, the first pass's
+    fallback count).  times: the second pass's stages plus "first_pass"
+    and "host_redo" (seconds; this rank's)."""
     dev = world["device"]
+    B, lo, nb = _shard(world, mesh)
     t0 = time.perf_counter()
-    _, _, pr = run_single(world, pileup_cap, kernel, per_read=True)
+    first, _, pr = mesh_stats(world, mesh, pileup_cap, kernel, per_read=True)
     fb = pr["fallback"].cpu().numpy() != 0
     t1 = time.perf_counter()
     rows_idx = np.nonzero(fb)[0]
-    reads = [copy.copy(world["reads"][b]) for b in rows_idx]
+    rows_idx = rows_idx[lo + rows_idx < B]  # a padding row has no read
+    reads = [copy.copy(world["reads"][lo + b]) for b in rows_idx]
     if reads:
         (engine or default_engine(world["idx"])).align_batch(reads,
                                                              world["opt"])
-    fb_n, fb_rows = pack_host_hits(reads, rows_idx, fb.shape[0])
+    fb_n, fb_rows = pack_host_hits(reads, rows_idx, nb)
     fill = (torch.from_numpy(fb_n).to(dev), torch.from_numpy(fb_rows).to(dev))
     t2 = time.perf_counter()
-    stats, rows = run_single(world, pileup_cap, kernel, times=times,
+    stats, rows = mesh_stats(world, mesh, pileup_cap, kernel, times=times,
                              fb_fill=fill)
     if times is not None:
         times["first_pass"] = t1 - t0
         times["host_redo"] = t2 - t1
-    return stats, rows, int(fb.sum())
+    return stats, rows, int(first["n_fallback"])
+
+
+def _host(v):
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+
+
+def build_native() -> None:
+    """Build the native FASTQ loader, aligner and DP libraries in this
+    process, so that ranks started after it load them: their builds write
+    the library in place, and two ranks building at once could load a
+    half-written one."""
+    from .native import get_aligner_lib, get_lib, get_sw_lib
+
+    get_lib()
+    get_aligner_lib()
+    get_sw_lib()
+
+
+def mesh_job(mesh, spec: dict) -> dict:
+    """One rank's runs of a world from files, for parallel/mesh.spawn (mesh
+    None: one device, in this process).  spec: the world's files (tmp,
+    idx_prefix, fq1, fq2), device, L, bitmaps, pileup_cap, out_dir (rank
+    0 writes each run's product files there, prefixed by its name),
+    engine ("native": the fill's exact redo is the native engine's, else
+    default_engine's) and runs, a list of dicts: name, kernel, opts (opt_args
+    overrides), fill (run_with_fill, else mesh_stats).  Returns this
+    rank's shard index, its world's load time, its peak device memory and
+    each run's stats and rows (numpy), stage times, wall time, launches,
+    first-pass fallback and files."""
+    from .kernels import build
+
+    rank = 0 if mesh is None else mesh.shard_index()
+    t0 = time.perf_counter()
+    world = world_from_files(spec["tmp"], spec["idx_prefix"], spec["fq1"],
+                             spec["fq2"], "r_1.fq", "r_2.fq",
+                             device=spec.get("device", "cuda"),
+                             L=spec.get("L", 256),
+                             bitmaps=spec.get("bitmaps", False))
+    dev = world["device"]
+    load_s = time.perf_counter() - t0
+    engine = None
+    if spec.get("engine") == "native":
+        from .align.engine import NativeEngine
+
+        engine = NativeEngine(world["idx"])  # raises without its library
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    runs = {}
+    for run in spec["runs"]:
+        world["opt_args"].update(run.get("opts", {}))
+        build.reset_launch_counts()
+        times: dict = {}
+        fb1 = None
+        t0 = time.perf_counter()
+        if run.get("fill"):
+            stats, rows, fb1 = run_with_fill(
+                world, engine, spec.get("pileup_cap", 64), run["kernel"],
+                times, mesh=mesh)
+        else:
+            stats, rows = mesh_stats(world, mesh, spec.get("pileup_cap", 64),
+                                     run["kernel"], times=times)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = dict(build.launch_counts)
+        files = []
+        if rank == 0 and spec.get("out_dir"):
+            files = write_product(f"{spec['out_dir']}/{run['name']}", stats,
+                                  rows, world["names"], world)
+        runs[run["name"]] = dict(
+            stats={k: _host(v) for k, v in stats.items()}, rows=rows,
+            times=times, wall_s=wall, launches=launches, fallback_first=fb1,
+            files=files)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+    return dict(rank=rank, load_s=load_s, peak_bytes=peak, runs=runs,
+                n_pairs=world["n_pairs"])
+
+
+def same_files(fa: list, fb: list, tag: str) -> int:
+    """Two write_product file lists: the same products (at least 12), each
+    pair byte-identical; raises otherwise.  Returns the count."""
+    import filecmp
+    import os
+
+    names = [[os.path.basename(f).split(".", 1)[1] for f in x]
+             for x in (fa, fb)]
+    if names[0] != names[1] or len(fa) < 12:
+        raise AssertionError(f"{tag}: product files {names[0]} vs "
+                             f"{names[1]}")
+    diffs = [os.path.basename(x) for x, y in zip(fa, fb)
+             if not filecmp.cmp(x, y, shallow=False)]
+    if diffs:
+        raise AssertionError(f"{tag}: product files differ: {diffs}")
+    return len(fa)
+
+
+def diff_world(a: dict, b: dict, tag: str) -> tuple[int, int, list]:
+    """Two mesh_job results (each rank 0's) of one world and run: their
+    product files must be byte-identical.  Returns (n_mapped, n_pair_reads,
+    files of b)."""
+    (ra,), (rb,) = a["runs"].values(), b["runs"].values()
+    n_mapped = int(rb["stats"]["n_mapped"])
+    if n_mapped <= 0:
+        raise AssertionError(f"no reads mapped in dry-run world {tag}")
+    same_files(ra["files"], rb["files"], tag)
+    return n_mapped, int(rb["stats"]["n_pair_reads"]), rb["files"]
+
+
+def dryrun_multichip(n: int, device="cuda", tmp: str | None = None,
+                     world: dict | None = None,
+                     world_kw: dict | None = None) -> dict:
+    """The synthetic half of the reference's multichip dry run: the full
+    step on testing/synthworld.build_synth_pe_world (`world`, else built
+    under tmp with world_kw) at mesh-n against mesh-n/2 (one device, in
+    this process, when n is 2), each over ranks that parallel/mesh.spawn
+    starts with gloo collectives (a 2-D ('host', 'chip') mesh of 2 hosts
+    when n >= 4 is even), every product file byte-identical.  device:
+    every rank's (ranks share the card).  The example-world half needs
+    the reference's bundled example and is not here.  Returns each mesh
+    size's per-rank mesh_job results and the diff's counts; raises on a
+    difference or a failed rank."""
+    import os
+    import tempfile
+
+    from .parallel.mesh import spawn
+    from .testing.synthworld import build_synth_pe_world
+
+    if world is None:
+        tmp = tmp or tempfile.mkdtemp(prefix="fq_dryrun_synth_")
+        world = build_synth_pe_world(tmp, **(world_kw or {}))
+    build_native()
+    base = os.path.join(str(world["tmp"]), "dryrun")
+    spec = dict(tmp=str(world["tmp"]), idx_prefix=world["idx_prefix"],
+                fq1=world["fq1"], fq2=world["fq2"], device=device,
+                pileup_cap=128, runs=[dict(name="synth", kernel="resident")])
+    out = {}
+    for nd in (n // 2, n):
+        s = dict(spec, out_dir=f"{base}_mesh{nd}")
+        os.makedirs(s["out_dir"], exist_ok=True)
+        if nd == 1:
+            out[nd] = [mesh_job(None, s)]
+        else:
+            hosts = 2 if nd >= 4 and nd % 2 == 0 else None
+            out[nd] = spawn(mesh_job, nd, (s,), hosts=hosts)
+    n_mapped, n_pair, files = diff_world(out[n // 2][0], out[n][0], "synth")
+    print(f"dryrun_multichip OK: mesh-{n} against mesh-{n // 2} on the "
+          f"synthetic world ({2 * out[n][0]['n_pairs']} PE reads, {n_mapped} "
+          f"mapped, {n_pair} proper-pair reads): {len(files)} product files "
+          f"byte-identical: "
+          f"{[os.path.basename(f).split('.', 1)[1] for f in files]}")
+    return dict(runs=out, n_mapped=n_mapped, n_pair_reads=n_pair,
+                files=files)

@@ -32,10 +32,11 @@ COPIES = (
     "pop/estimator.py", "report/__init__.py", "report/report.py",
     "native/__init__.py", "native/aligner.cpp", "native/fastq_loader.cpp",
     "native/sw.cpp",
-    "testing/__init__.py", "ops/__init__.py",
+    "testing/__init__.py", "ops/__init__.py", "parallel/__init__.py",
 )
 REWRITTEN = ("align/driver.py", "align/pe.py", "testing/synthworld.py",
-             "pop/device_llk.py", "pop/driver.py", "pipeline.py")
+             "pop/device_llk.py", "pop/driver.py", "pipeline.py",
+             "parallel/mesh.py", "parallel/scaling.py")
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -72,3 +73,12 @@ PORT_SOURCES = sorted(str(p.relative_to(REPO))
 def test_no_jax_or_reference_import(rel):
     bad = _imported_roots(REPO / rel) & {"jax", "jaxlib", "fastquick_tpu"}
     assert not bad, f"{rel} imports {sorted(bad)}"
+
+
+def test_import_ban_covers_the_mesh():
+    """The mesh modules (parallel/) and the mesh's rank functions are
+    among the sources the ban checks."""
+    want = {f"fastquick_tpu_torch/{m}" for m in (
+        "parallel/__init__.py", "parallel/mesh.py", "parallel/scaling.py",
+        "testing/mesh_cases.py")}
+    assert want <= set(PORT_SOURCES)

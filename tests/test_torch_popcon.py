@@ -146,7 +146,7 @@ def test_device_llk_mesh_raises(panels):
 
     est, _ = _estimators(panels)
     est._prepare()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         DeviceLLK(est._counts, est._UD_act, est._means_act, mesh=object(),
                   device="cpu")
 
