@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive fastquick_tpu_torch's pipeline on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # all phases, one card, ~12 minutes
+    python3 chip_smoke.py            # all phases, one card, ~13 minutes
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -103,10 +103,21 @@ Phases (any failure raises and the script exits non-zero):
    ranks on phase 6's pileup (a seeded panel's when phase 6 did not
    run): within rel 1e-5 of the unsharded one at three points, and
    ``pop+con --DeviceLLK`` in each rank, sharded by the driver, FREEMIX
-   within 5e-3 of numpy's.
+   within 5e-3 of numpy's;
+8. bench: the benchmark entry points as a user runs them, each a
+   process of its own, at cut sizes (4,096 reads, a stream of 32,768,
+   one timed pass): ``python -m fastquick_tpu_torch.bench`` (the native
+   engine, then the cuda mode on the same reads, hits equal to native,
+   then the e2e stream), its ``cuda`` and ``e2e`` modes alone, and
+   ``python -m fastquick_tpu_torch.sweep`` on three configs (resident at
+   chain 1 and 4, scan).  Each prints its JSON line(s) with the card's
+   name and power limit, exits 0, no number null; the bench's cuda runs
+   launched the width and search kernels and the sweep's configs the
+   width kernel and search, search_chain and scan, counted from zero in
+   each process just before its timed passes.
 
 The last two lines of stdout are the kernels line and
-{"ok": true, "device": {...}}, printed only when phases 2-7 all ran
+{"ok": true, "device": {...}}, printed only when phases 2-8 all ran
 (``--phases`` picks a subset for debugging).  Numbers and logs also go to
 chiprun_out/chip_smoke/.  Without CUDA, or outside a checkout of the
 repository, it exits non-zero and prints no result.
@@ -132,27 +143,17 @@ from unittest import mock
 REPO = Path(__file__).resolve().parent
 OUT = REPO / "chiprun_out" / "chip_smoke"
 
-# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
-# bytes/s and fp32 operations/s outside the tensor cores.  The kernels do
-# 32-bit integer work, whose rate on Hopper is at most the fp32 rate, so
-# time = ops / FP32_OPS is a valid lower bound.
-HBM_BYTES_S = 3.35e12
-FP32_OPS_S = 67e12
 # integer operations per unit of work, counted from the kernels' inner
 # loops (csrc/*_body.cuh): a width step is two single-base rank queries
-# (8 words x ~7 ops + ~15 addressing each); a search step is at least one
-# such pair (a chain step; expansions cost ~4x more); an SW cell ~12 ops
+# (8 words x ~7 ops + ~15 addressing each); an SW cell ~12 ops.  The
+# card's peaks and the search's count are fastquick_tpu_torch/utils/
+# bounds.py's, which the bench shares.
 OPS_WIDTH_STEP = 150
-OPS_SEARCH_STEP_MIN = 150
 OPS_SW_CELL = 12
-
-ALL_OUTPUTS = ("Summary", "DepthDist", "GCDist", "EmpRepDist",
-               "EmpCycleDist", "RawInsertSizeDist", "AdjustedInsertSizeDist",
-               "SexChromInfo", "Pileup", "vcf", "InsertSizeTable", "bam")
 
 # after the card phase
 ALL_PHASES = ("kernels", "small", "production", "program", "pipeline",
-              "mesh")
+              "mesh", "bench")
 
 KERNELS = {
     "width": ("fastquick_tpu_torch/csrc/width.cu",
@@ -216,23 +217,6 @@ def _pctl(t) -> list:
     v = t.cpu().numpy()
     return [float(np.percentile(v, 50)), float(np.percentile(v, 99)),
             int(v.max())]
-
-
-def bound(bytes_: float, ops: float) -> tuple[float, str]:
-    tb, to = bytes_ / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
-
-
-def search_bound(P, N: int, tab_bytes: int, n_aln, steps: int,
-                 outs: int) -> tuple[float, str]:
-    """The least time of a search of N reads: its inputs (codes, four
-    scalars, the width rows of both strands and of the seeds, the table
-    once), `outs` int32 scalars out per read and the hit rows it emitted
-    (n_aln of them); ~150 operations a step taken."""
-    in_bytes = (N * P.L + 16 * N + 2 * N * (P.L + 1) * 8
-                + 2 * N * (P.SL + 1) * 8 + tab_bytes)
-    out_bytes = 4 * outs * N + 12 * int(n_aln.clamp(0, 48).long().sum())
-    return bound(in_bytes + out_bytes, steps * OPS_SEARCH_STEP_MIN)
 
 
 def same_search(got, want, what: str) -> None:
@@ -368,6 +352,7 @@ def phase_kernels(seed: int, dev: str = "cuda", text_len: int = 6_500_000,
         EDGE_LENS,
         width_edge_batch,
     )
+    from fastquick_tpu_torch.utils.bounds import bound, search_bound
 
     dev = torch.device(dev)
     rng = np.random.default_rng(seed)
@@ -580,6 +565,7 @@ def chain_case(fm, P, inp, widths0, n: int) -> dict:
         resident_search,
         search_plain,
     )
+    from fastquick_tpu_torch.utils.bounds import search_bound
 
     def check(Pc, what):
         hwm_k = torch.zeros(widths0.shape[0] // 2, dtype=torch.int32,
@@ -670,6 +656,7 @@ def drand48_case(dev, rng, n: int) -> dict:
         seed_state,
     )
     from fastquick_tpu_torch.testing.drand48_cases import random_batch
+    from fastquick_tpu_torch.utils.bounds import bound
 
     n_aln, alns, _ = random_batch(rng, n)
     na = torch.from_numpy(n_aln).to(dev)
@@ -801,16 +788,8 @@ def _device_run(argv: list[str], logf, kernel: str,
     return st, launches
 
 
-def _same_outputs(a: str, b: str) -> None:
-    for sfx in ALL_OUTPUTS:
-        fa, fb = Path(f"{a}.{sfx}"), Path(f"{b}.{sfx}")
-        if not (fa.exists() and fb.exists()):
-            raise AssertionError(f"missing product file .{sfx}")
-        if not filecmp.cmp(fa, fb, shallow=False):
-            raise AssertionError(f".{sfx} differs: {fa} vs {fb}")
-
-
 def phase_small(work: Path, logf) -> dict:
+    from fastquick_tpu_torch.bench_configs import same_products
     from fastquick_tpu_torch.testing.synthworld import build_synth_pe_world
 
     d = work / "small"
@@ -826,14 +805,14 @@ def phase_small(work: Path, logf) -> dict:
                                 logf, "resident")
     host = _align(common + ["--out_prefix", str(d / "host"),
                             "--engine", "host"], logf)
-    _same_outputs(str(d / "host"), str(d / "dev"))
+    same_products(str(d / "host"), str(d / "dev"))
     log(f"small world: device {dev['wall_s']:.1f}s vs host "
         f"{host['wall_s']:.1f}s, 12 product files byte-identical; "
         f"launches {launches}; fallback {dev['fallback']}/"
         f"{dev['searched']} {dev['fb_causes']}")
     scan, scan_launches = _device_run(
         common + ["--out_prefix", str(d / "scan")], logf, "scan")
-    _same_outputs(str(d / "host"), str(d / "scan"))
+    same_products(str(d / "host"), str(d / "scan"))
     log(f"small world, scan kernel: device {scan['wall_s']:.1f}s, 12 "
         f"product files byte-identical to host; {scan['rounds']} rounds, "
         f"launches {scan_launches}; fallback {scan['fallback']}/"
@@ -846,6 +825,7 @@ def phase_small(work: Path, logf) -> dict:
 
 def phase_production(work: Path, logf, seed: int, pairs: int,
                      **world_kw) -> dict:
+    from fastquick_tpu_torch.bench_configs import same_products
     from fastquick_tpu_torch.testing.synthworld import build_production_world
 
     d = work / "prod"
@@ -866,7 +846,7 @@ def phase_production(work: Path, logf, seed: int, pairs: int,
                                 logf, "resident", calls)
     nat = _align(common + ["--out_prefix", str(d / "nat"),
                            "--engine", "native"], logf)
-    _same_outputs(str(d / "nat"), str(d / "dev"))
+    same_products(str(d / "nat"), str(d / "dev"))
     share = dev["fallback"] / max(dev["searched"], 1)
     rps = w["n_reads"] / dev["wall_s"]
     log(f"production: device_qc {dev['wall_s']:.1f}s ({rps:.0f} reads/s), "
@@ -906,7 +886,7 @@ def phase_production(work: Path, logf, seed: int, pairs: int,
 
     scan, scan_launches = _device_run(
         common + ["--out_prefix", str(d / "scan")], logf, "scan")
-    _same_outputs(str(d / "nat"), str(d / "scan"))
+    same_products(str(d / "nat"), str(d / "scan"))
     scan_share = scan["fallback"] / max(scan["searched"], 1)
     scan_rps = w["n_reads"] / scan["wall_s"]
     log(f"production, scan kernel: device_qc {scan['wall_s']:.1f}s "
@@ -936,30 +916,6 @@ def phase_production(work: Path, logf, seed: int, pairs: int,
 
 PROGRAM_COUNTERS = ("n_mapped", "n_eligible", "n_pair_reads", "n_pcr_dup",
                     "pileup_ovf", "n_pair_ovf")
-
-
-def _same_program(a: tuple, b: tuple, what: str, skip=()) -> None:
-    """Two one-program runs' (stats, rows) identical: every accumulator and
-    row field exactly, the insert-size estimate's floats within 1e-6
-    relative; stats are torch or numpy; keys in skip are not held."""
-    import numpy as np
-
-    def host(v):
-        return v.cpu().numpy() if hasattr(v, "cpu") else np.asarray(v)
-
-    (sa, ra), (sb, rb) = a, b
-    bad = sorted(set(sa) ^ set(sb)) + sorted(set(ra) ^ set(rb))
-    for k in set(sa) & set(sb) - set(skip):
-        x, y = host(sa[k]), host(sb[k])
-        if k == "_ii":
-            if not np.allclose(x, y, rtol=1e-6, atol=0):
-                bad.append(k)
-        elif x.dtype != y.dtype or not np.array_equal(x, y):
-            bad.append(k)
-    bad += [f"row {k}" for k in set(ra) & set(rb)
-            if not np.array_equal(ra[k], rb[k])]
-    if bad:
-        raise AssertionError(f"{what}: differ in {sorted(bad)}")
 
 
 def _stage_line(times: dict) -> str:
@@ -1106,8 +1062,8 @@ def phase_program(work: Path, logf, seed: int, pairs: int,
             f"{int(stats['n_mapped'])}, n_fallback "
             f"{int(stats['n_fallback'])}; launches "
             f"{out[device]['launches']}")
-    _same_program(out["cuda"]["run"], out["cpu"]["run"],
-                  "small world, cuda vs cpu")
+    qp.same_run(out["cuda"]["run"], out["cpu"]["run"],
+                "small world, cuda vs cpu")
     n_files = qp.same_files(out["cuda"]["files"], out["cpu"]["files"],
                             "small world, cuda vs cpu")
     log(f"program small world: cuda run equal to the cpu run in every "
@@ -1179,8 +1135,8 @@ def phase_program(work: Path, logf, seed: int, pairs: int,
             res[name]["search_check"] = _check_search(calls["search"][0],
                                                       name)
         del calls
-    _same_program(runs["resident"]["run"], runs["scan"]["run"],
-                  "production, resident vs scan")
+    qp.same_run(runs["resident"]["run"], runs["scan"]["run"],
+                "production, resident vs scan")
     n_files = qp.same_files(runs["resident"]["files"],
                             runs["scan"]["files"],
                             "production, resident vs scan")
@@ -1291,6 +1247,7 @@ def phase_pipeline(work: Path, logf, seed: int, pairs: int,
 
     import torch
 
+    from fastquick_tpu_torch.bench_configs import PRODUCTS, same_products
     from fastquick_tpu_torch.kernels import build
     from fastquick_tpu_torch.pop import device_llk
     from fastquick_tpu_torch.pop import estimator as pop_est
@@ -1349,11 +1306,8 @@ def phase_pipeline(work: Path, logf, seed: int, pairs: int,
                              "--out_prefix", str(d / f"{eng}_merged"),
                              str(d / f"{eng}_a"), str(d / f"{eng}_b")], logf)
     merged = str(d / "dev_merged")
-    for sfx in ALL_OUTPUTS[:-1]:  # merge writes every product file but bam
-        if not filecmp.cmp(f"{merged}.{sfx}", d / f"nat_merged.{sfx}",
-                           shallow=False):
-            raise AssertionError(f"merged .{sfx}: device shards differ from "
-                                 "native shards")
+    # merge writes every product file but the BAM
+    same_products(str(d / "nat_merged"), merged, PRODUCTS[:-1])
     # against the single run: the files whose sums do not depend on the
     # order of the reads (the drand48 stream of the repeat markers' hit
     # draws restarts in each shard, so their pairs may differ)
@@ -1386,11 +1340,7 @@ def phase_pipeline(work: Path, logf, seed: int, pairs: int,
                    "--SVDPrefix", panel, "--Output", out, "--device", "cuda"]
 
     def same_as_native():
-        for sfx in ALL_OUTPUTS:
-            if not filecmp.cmp(f"{nat}.{sfx}", f"{out}.{sfx}",
-                               shallow=False):
-                raise AssertionError(f"pipeline .{sfx} differs from the "
-                                     "native run")
+        same_products(nat, out)
 
     times: dict = {}
     has_mpl = importlib.util.find_spec("matplotlib") is not None
@@ -1642,13 +1592,13 @@ def phase_mesh(work: Path, logf, seed: int, pairs: int,
                                      "reads left after the fill pass")
             log(f"mesh production, {name} kernel, {_rank_line(r, name)}; "
                 f"first pass {x['fallback_first']} fallback reads")
-        _same_program((a["stats"], a["rows"]), (b["stats"], b["rows"]),
-                      f"mesh production {name}: rank 1 against rank 0")
+        qp.same_run((a["stats"], a["rows"]), (b["stats"], b["rows"]),
+                    f"mesh production {name}: rank 1 against rank 0")
         # n_reads counts padding rows; the production batch has none, but
         # the bar is the reference's
-        _same_program((one["stats"], one["rows"]), (a["stats"], a["rows"]),
-                      f"mesh production {name} against one device",
-                      skip=("n_reads",))
+        qp.same_run((one["stats"], one["rows"]), (a["stats"], a["rows"]),
+                    f"mesh production {name} against one device",
+                    skip=("n_reads",))
         n_files = qp.same_files(one["files"], a["files"],
                                 f"mesh production {name} against one device")
         log(f"mesh production, {name} kernel: mesh-2 run_with_fill over "
@@ -1716,6 +1666,64 @@ def phase_mesh(work: Path, logf, seed: int, pairs: int,
     return res
 
 
+# ------------------------------------------------------------- phase 8
+
+# the bench phase's cut sizes: reads, stream, one timed pass
+BENCH_ENV = {"FQ_BENCH_READS": "4096", "FQ_BENCH_STREAM": "32768",
+             "FQ_BENCH_REPS": "1", "FQ_SWEEP_READS": "4096",
+             "FQ_SWEEP_REPS": "1"}
+# the sweep's configs, and the kernel each must launch
+SWEEP_CONFIGS = {"1024,1024,1": "search", "1024,1024,4": "search_chain",
+                 "1024,512,1,32,scan": "scan"}
+
+
+def _entry(argv: list[str], env: dict, name: str) -> list[dict]:
+    """One benchmark entry point in a process of its own: its JSON lines
+    (stderr to <name>.log beside the other logs); raises unless it exits
+    0 and every line names this card."""
+    import torch
+
+    t0 = time.perf_counter()
+    with open(OUT / f"{name}.log", "w") as err:
+        r = subprocess.run([sys.executable, "-m"] + argv, cwd=REPO,
+                           env=dict(os.environ, **BENCH_ENV, **env),
+                           stdout=subprocess.PIPE, stderr=err, text=True,
+                           timeout=600)
+    lines = [json.loads(ln) for ln in r.stdout.splitlines()
+             if ln.startswith("{")]
+    if r.returncode != 0 or not lines:
+        raise AssertionError(f"{name} exited {r.returncode}: {r.stdout}")
+    for line in lines:
+        nulls = [k for k, v in line.items() if v is None]
+        if nulls or line["device"]["name"] != torch.cuda.get_device_name(0):
+            raise AssertionError(f"{name}: {line}")
+    log(f"bench {name} ({time.perf_counter() - t0:.1f}s): "
+        + " | ".join(json.dumps(ln) for ln in lines))
+    return lines
+
+
+def phase_bench() -> dict:
+    def launched(counts: dict, *kernels) -> None:
+        if not all(counts.get(k) for k in kernels):
+            raise AssertionError(f"launched {counts}, not all of {kernels}")
+
+    res = {}
+    (res["default"],) = _entry(["fastquick_tpu_torch.bench"], {}, "bench")
+    launched(res["default"]["cuda_launches"], "width", "search")
+    (res["cuda"],) = _entry(["fastquick_tpu_torch.bench"],
+                            {"FQ_BENCH_ENGINE": "cuda"}, "bench_cuda")
+    launched(res["cuda"]["launches"], "width", "search")
+    (res["e2e"],) = _entry(["fastquick_tpu_torch.bench"],
+                           {"FQ_BENCH_ENGINE": "e2e"}, "bench_e2e")
+    res["sweep"] = _entry(["fastquick_tpu_torch.sweep", *SWEEP_CONFIGS], {},
+                          "sweep")
+    for line in res["sweep"]:
+        if not line["ok"]:
+            raise AssertionError(f"sweep {line}")
+        launched(line["launches"], "width", SWEEP_CONFIGS[line["config"]])
+    return res
+
+
 # ----------------------------------------------------------------- main
 
 
@@ -1723,7 +1731,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma list of kernels,small,production,program,"
-                    "pipeline,mesh "
+                    "pipeline,mesh,bench "
                     "(the card phase always runs); the kernels and ok lines "
                     "are printed only when all of them ran")
     ap.add_argument("--seed", type=int, default=0)
@@ -1774,6 +1782,8 @@ def main() -> int:
                     result.get("production", {}).get("world"),
                     result.get("program"),
                     result.get("pipeline", {}).get("production"))
+            if "bench" in phases:
+                result["bench"] = phase_bench()
     finally:
         shutil.rmtree(work, ignore_errors=True)
         (OUT / "result.json").write_text(json.dumps(result, indent=1,

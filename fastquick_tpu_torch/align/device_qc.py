@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..ops.site_tables import build_site_tables
+from ..utils.device import resolve_device
 from ..utils.logging import notice
 
 _PAD_B = 4096  # reads per accumulation call
@@ -79,8 +80,8 @@ class DeviceDenseStats:
     (src/StatCollector.cpp:437-618) exactly."""
 
     def __init__(self, idx, collector, opt,
-                 device: str | torch.device = "cpu"):
-        self.device = torch.device(device)
+                 device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
         self.tables = build_site_tables(idx, collector, opt, self.device)
         self.S = self.tables.n_sites
         self.n_text = idx.l_pac

@@ -35,6 +35,8 @@ from ..align.core import Aln
 from ..align.engine import HostEngine
 from ..align.opts import GapOpt, bwa_cal_maxdiff
 from ..index.builder import ReducedIndex
+from ..utils.bounds import search_bytes
+from ..utils.device import resolve_device
 from .fm import DeviceFM, width_finalize
 from .search_kernels import (
     A_MAX,
@@ -104,13 +106,14 @@ def compact_hits(n_aln: torch.Tensor, alns: torch.Tensor, fb: torch.Tensor,
 
 
 def pack_chunk(todo, opt: GapOpt, pool: int, step_cap: int = 0,
-               kernel: str = "resident"):
+               kernel: str = "resident", chain: int = 1):
     """Host half of one chunk: the padded, nibble-packed reversed codes
     (Npad a power of two >= 256, Lpad a multiple of 32), the [len, md,
     use_seed] aux rows (md = -1 marks padding) and the chunk's search
     parameters (step_cap 0 = auto: max(1536, 6 * Lpad) for the resident
-    kernel, max(768, 3 * Lpad) for the scan kernel).  Returns (packed
-    (Npad, Lpad/2) uint8, aux (Npad, 3) int32, SearchParams)."""
+    kernel, max(768, 3 * Lpad) for the scan kernel; chain: the chain
+    length CH).  Returns (packed (Npad, Lpad/2) uint8, aux (Npad, 3)
+    int32, SearchParams)."""
     B = len(todo)
     Lmax = max(p.len for p in todo)
     Npad = 256
@@ -136,7 +139,8 @@ def pack_chunk(todo, opt: GapOpt, pool: int, step_cap: int = 0,
         max_gapo=int(min(opt.max_gapo, batch_md)),
         max_gape=opt.max_gape, indel_end_skip=opt.indel_end_skip,
         max_del_occ=opt.max_del_occ, max_entries=opt.max_entries,
-        max_top2=opt.max_top2, max_seed_diff=opt.max_seed_diff)
+        max_top2=opt.max_top2, max_seed_diff=opt.max_seed_diff,
+        CH=int(chain))
     packed = (seqs[:, 0::2].astype(np.uint8)
               | (seqs[:, 1::2].astype(np.uint8) << 4))
     aux = np.stack([lens, md, use_seed.astype(np.int32)], axis=1)
@@ -202,33 +206,49 @@ def search_chunk(fm: DeviceFM, packed: torch.Tensor, aux: torch.Tensor,
     ``lanes`` and ``inner`` are the scan kernel's lane count and steps a
     round.  Returns (meta (3 Npad,) [n_aln | offs | fb], rows (3 Npad, 3)
     on the device, busy steps (a device scalar), outer rounds (0 for the
-    resident kernel, which has none))."""
+    resident kernel, which has none), lane steps (the steps the lanes were
+    held for: rounds x inner x lanes for the scan kernel; for the resident
+    kernel, whose warps of 32 threads take 32 reads in order, each warp's
+    longest read's steps x 32, a device scalar))."""
     N = packed.shape[0]
     inp = chunk_inputs(fm, packed, aux, P)
     if kernel == "scan":
         n_aln, alns, fb, steps, rounds, busy = scan_chunk(fm, P, lanes,
                                                           inner, **inp)
+        lane_steps = rounds * inner * min(lanes, N)
     else:
         n_aln, alns, fb, steps = resident_search(fm, P, **inp)
         rounds, busy = 0, steps.long().sum()
+        lane_steps = steps.long().reshape(-1, 32).amax(1).sum() * 32
     n_c, rows, offs, fb_c = compact_hits(n_aln, alns, fb, 3 * N)
     meta = torch.cat([n_c.to(torch.int32), offs.to(torch.int32), fb_c])
-    return meta, rows, busy, rounds
+    return meta, rows, busy, rounds, lane_steps
 
 
 class BatchEngine:
     """Batched device engine with an exact native/host redo of the reads
-    the device search cannot finish."""
+    the device search cannot finish.
 
-    def __init__(self, idx: ReducedIndex, device: str | torch.device = "cpu",
+    It runs on the card unless ``device`` is "cpu" (the plain versions);
+    "cuda" without a usable CUDA device raises.  ``chain``: the resident
+    kernel's chain length CH (exact-walk bases a step; None =
+    ``FQ_BS_CHAIN``, default 1); the scan path walks one base a step and
+    raises for any other."""
+
+    def __init__(self, idx: ReducedIndex, device: str | torch.device = "cuda",
                  max_batch: int = 32768, lanes: int | None = None,
                  pool: int | None = None, inner: int | None = None,
-                 step_cap: int | None = None, pallas=None):
+                 step_cap: int | None = None, chain: int | None = None,
+                 pallas=None):
         self.idx = idx
-        self.device = torch.device(device)
         # chosen before anything moves to the device (see search_kernel)
-        self.kernel = search_kernel(self.device.type, pallas)
+        self.kernel = search_kernel(torch.device(device).type, pallas)
+        self.device = resolve_device(device)
         env = os.environ.get
+        self.chain = chain or int(env("FQ_BS_CHAIN", 1))
+        if self.kernel == "scan" and self.chain != 1:
+            raise ValueError(f"chain {self.chain}: the scan kernel walks one "
+                             "base a step (chain 1)")
         self.lanes = lanes or int(env("FQ_BS_LANES", 1024))
         self.inner = inner or int(env("FQ_BS_INNER", 32))
         # pool slots per read, 0 = per-kernel auto: the resident kernel's
@@ -250,6 +270,8 @@ class BatchEngine:
         self.last_fallback = 0
         self.last_busy = 0
         self.last_iters = 0  # rounds * inner, as the reference counts them
+        self.last_lane_steps = 0  # steps the lanes were held (search_chunk)
+        self.last_bytes = 0  # bytes the searches must move (utils/bounds)
         self.last_fb_causes: dict[str, int] = {}
         # totals over the engine's life
         self.reads_searched = 0
@@ -269,6 +291,8 @@ class BatchEngine:
         self.last_fallback = 0
         self.last_busy = 0
         self.last_iters = 0
+        self.last_lane_steps = 0
+        self.last_bytes = 0
         self.last_fb_causes = {}
         for s in range(0, len(todo), self.max_batch):
             self._run_chunk(todo[s:s + self.max_batch], opt)
@@ -305,9 +329,9 @@ class BatchEngine:
             return
         B = len(todo)
         packed, aux, P = pack_chunk(todo, opt, self.pool, self.step_cap,
-                                    self.kernel)
+                                    self.kernel, self.chain)
         Npad = packed.shape[0]
-        meta_d, rows_d, busy, rounds = search_chunk(
+        meta_d, rows_d, busy, rounds, lane_steps = search_chunk(
             self.dev, torch.from_numpy(packed).to(self.device),
             torch.from_numpy(aux).to(self.device), P, self.kernel,
             self.lanes, self.inner)
@@ -319,6 +343,10 @@ class BatchEngine:
         self._count_causes(fallback[:B])
         self.last_busy += int(busy)
         self.last_iters += rounds * self.inner
+        self.last_lane_steps += int(lane_steps)
+        self.last_bytes += search_bytes(
+            P, B, self.dev.kernel_table_bytes(),
+            int(n_aln[:B].sum()), 3)
         self.busy += int(busy)
         self.rounds += rounds
         fb_list = fallback.tolist()

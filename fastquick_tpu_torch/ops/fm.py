@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..index.fmindex import BASES_PER_WORD, OCC_BLOCK, FMIndex
+from ..utils.device import resolve_device
 
 WORDS_PER_BLOCK = OCC_BLOCK // BASES_PER_WORD  # 8
 TAB_WIDTH = 16  # int32 per fused kernel-table row: occ[4] words[8] pad[4]
@@ -78,7 +79,11 @@ class DeviceFM:
 
     @classmethod
     def build(cls, fm_fwd: FMIndex, fm_rev: FMIndex,
-              device: str | torch.device = "cpu") -> "DeviceFM":
+              device: str | torch.device = "cuda") -> "DeviceFM":
+        """The device layout of the two FM indexes on `device` (the card
+        unless "cpu"; cuda without a usable CUDA device raises)."""
+        device = resolve_device(device)
+
         def prep_words(fm):
             # one Occ block (8 words = 128 bases) per row, +1 guard block
             w = fm.bwt_words
@@ -111,6 +116,10 @@ class DeviceFM:
             tab[:, : self.words.shape[1], 4:12] = self.words
             self._tab = tab.reshape(2 * nbp, TAB_WIDTH).contiguous()
         return self._tab
+
+    def kernel_table_bytes(self) -> int:
+        """The size of kernel_table() in bytes, without building it."""
+        return 2 * max(self.words.shape[1], self.occ.shape[1]) * TAB_WIDTH * 4
 
     def host_params(self) -> np.ndarray:
         """[n, nbp, primary0, primary1, L2 fwd x4, L2 rev x4] int32, the

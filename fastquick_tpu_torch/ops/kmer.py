@@ -20,6 +20,8 @@ from collections.abc import Sequence
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
+
 KMER_SIZE = 32
 N_TABLES = 6
 TABLE_WORDS = 1 << 27  # 2^32 bits per table as 32-bit words
@@ -27,7 +29,7 @@ M32 = 0xFFFFFFFF
 
 
 def load_kmer_bitmaps(bitmaps: np.ndarray | Sequence[np.ndarray],
-                      device: str | torch.device = "cpu"
+                      device: str | torch.device = "cuda"
                       ) -> torch.Tensor | list[torch.Tensor]:
     """The filter's bitmaps as int32 words on `device`.
 
@@ -37,8 +39,9 @@ def load_kmer_bitmaps(bitmaps: np.ndarray | Sequence[np.ndarray],
     little-endian words).  On the CPU nothing is copied: the result wraps
     the arrays (torch.from_numpy) -- one (6, 2^27) tensor, or a list of six
     (2^27,) tensors for a sequence.  On a CUDA device the tables are
-    uploaded one by one into one (6, 2^27) tensor."""
-    device = torch.device(device)
+    uploaded one by one into one (6, 2^27) tensor.  The card unless
+    `device` is "cpu"; cuda without a usable CUDA device raises."""
+    device = resolve_device(device)
     if (isinstance(bitmaps, np.ndarray) and bitmaps.ndim == 2
             and device.type == "cpu"):
         return torch.from_numpy(np.ascontiguousarray(bitmaps).view(np.int32))

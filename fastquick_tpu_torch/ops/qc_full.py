@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..align.opts import G_LOG_N
+from ..utils.device import resolve_device
 from .drand48_device import aln2seq_draw_scan, seed_state
 from .fm import DeviceFM
 from .kmer import filter_reads
@@ -81,11 +82,13 @@ def unpack_entry(v: np.ndarray):
 
 def synthetic_site_tables(text: np.ndarray, n_markers: int = 8,
                           flank: int = 250, seed: int = 0,
-                          device: str | torch.device = "cpu") -> SiteTables:
+                          device: str | torch.device = "cuda") -> SiteTables:
     """Standalone tables over a synthetic text (tests / entry): markers
     evenly spaced, each with a +/-flank in-region window, every position
     of which is a dense site; every 3rd site dbsnp.  `seed` is unused,
-    as in the reference."""
+    as in the reference.  On the card unless `device` is "cpu" (cuda
+    without CUDA raises)."""
+    device = resolve_device(device)
     n = len(text)
     mpos = np.linspace(flank, n - flank - 1, n_markers).astype(np.int64)
     site_idx = np.full(n + 1, -1, np.int32)

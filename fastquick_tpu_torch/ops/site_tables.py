@@ -12,6 +12,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
+
 
 @dataclass(frozen=True)
 class SiteTables:
@@ -50,10 +52,12 @@ class SiteTables:
 
 
 def build_site_tables(idx, sc, opt,
-                      device: str | torch.device = "cpu") -> SiteTables:
+                      device: str | torch.device = "cuda") -> SiteTables:
     """Build pac-space tables from a ReducedIndex + a StatCollector that
     has run restore_vcf_sites (mirrors the coordinate math of
-    add_single_alignment: real = contig.pos - flank + (pac - offset))."""
+    add_single_alignment: real = contig.pos - flank + (pac - offset)), on
+    `device` (the card unless "cpu"; cuda without CUDA raises)."""
+    device = resolve_device(device)
     n = idx.l_pac
     site_idx = np.full(n + 1, -1, np.int32)
     marker_id = np.full(n + 1, -1, np.int32)

@@ -468,6 +468,29 @@ def same_files(fa: list, fb: list, tag: str) -> int:
     return len(fa)
 
 
+def same_run(a: tuple, b: tuple, what: str, skip=()) -> None:
+    """Two one-program runs' (stats, rows) identical: every accumulator and
+    row field exactly, the insert-size estimate's floats within 1e-6
+    relative; stats are torch or numpy; keys in skip are not held.
+    Raises AssertionError naming what differs."""
+    def host(v):
+        return v.cpu().numpy() if hasattr(v, "cpu") else np.asarray(v)
+
+    (sa, ra), (sb, rb) = a, b
+    bad = sorted(set(sa) ^ set(sb)) + sorted(set(ra) ^ set(rb))
+    for k in set(sa) & set(sb) - set(skip):
+        x, y = host(sa[k]), host(sb[k])
+        if k == "_ii":
+            if not np.allclose(x, y, rtol=1e-6, atol=0):
+                bad.append(k)
+        elif x.dtype != y.dtype or not np.array_equal(x, y):
+            bad.append(k)
+    bad += [f"row {k}" for k in set(ra) & set(rb)
+            if not np.array_equal(ra[k], rb[k])]
+    if bad:
+        raise AssertionError(f"{what}: differ in {sorted(bad)}")
+
+
 def diff_world(a: dict, b: dict, tag: str) -> tuple[int, int, list]:
     """Two mesh_job results (each rank 0's) of one world and run: their
     product files must be byte-identical.  Returns (n_mapped, n_pair_reads,

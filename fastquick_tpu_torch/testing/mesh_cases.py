@@ -79,7 +79,7 @@ def _step_case(mesh, case: dict, text, fm) -> dict:
         step = make_sharded_qc_step(mesh, fm, fm.n, axis=mesh.axis_names)
         return dict(stats=_numpy(step(*mine)))
     # "full"; arrays: seqs, rseqs, quals, lens
-    tables = synthetic_site_tables(text)
+    tables = synthetic_site_tables(text, device=fm.device)
     md = torch.from_numpy(case["md"])
     if mesh is None:
         from ..ops.qc_full import count_pcr_dups, qc_step_full

@@ -1,0 +1,45 @@
+"""The least time the card could take for a search: bytes and operations.
+
+The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
+bytes/s and fp32 operations/s outside the tensor cores.  The kernels do
+32-bit integer work, whose rate on Hopper is at most the fp32 rate, so
+time = ops / FP32_OPS_S is a valid lower bound.  chip_smoke.py and the
+bench (bench.py, sweep.py) compute their bounds here, so both hold the
+same count.
+"""
+
+from __future__ import annotations
+
+HBM_BYTES_S = 3.35e12
+FP32_OPS_S = 67e12
+# integer operations of one search step, counted from the kernels' inner
+# loops (csrc/*_body.cuh): at least one pair of single-base rank queries
+# (8 words x ~7 ops + ~15 addressing each; a chain step; expansions cost
+# ~4x more)
+OPS_SEARCH_STEP_MIN = 150
+
+
+def bound(bytes_: float, ops: float) -> tuple[float, str]:
+    """(ms, "bytes" | "operations"): the larger of bytes over the HBM rate
+    and operations over the fp32 rate."""
+    tb, to = bytes_ / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def search_bytes(P, N: int, tab_bytes: int, n_rows: int, outs: int) -> int:
+    """The bytes a search of N reads must move: its inputs (codes, four
+    scalars, the width rows of both strands and of the seeds, the FM table
+    once), `outs` int32 scalars out per read and the n_rows hit rows it
+    emitted (12 bytes each)."""
+    in_bytes = (N * P.L + 16 * N + 2 * N * (P.L + 1) * 8
+                + 2 * N * (P.SL + 1) * 8 + tab_bytes)
+    return in_bytes + 4 * outs * N + 12 * n_rows
+
+
+def search_bound(P, N: int, tab_bytes: int, n_aln, steps: int,
+                 outs: int) -> tuple[float, str]:
+    """The least time of a search of N reads (search_bytes, with the hit
+    rows of the (N,) n_aln tensor) taking `steps` steps."""
+    n_rows = int(n_aln.clamp(0, 48).long().sum())
+    return bound(search_bytes(P, N, tab_bytes, n_rows, outs),
+                 steps * OPS_SEARCH_STEP_MIN)

@@ -82,3 +82,11 @@ def test_import_ban_covers_the_mesh():
         "parallel/__init__.py", "parallel/mesh.py", "parallel/scaling.py",
         "testing/mesh_cases.py")}
     assert want <= set(PORT_SOURCES)
+
+
+def test_import_ban_covers_the_bench():
+    """The bench, its configs, the sweep and the bounds they share are
+    among the sources the ban checks."""
+    want = {f"fastquick_tpu_torch/{m}" for m in (
+        "bench.py", "bench_configs.py", "sweep.py", "utils/bounds.py")}
+    assert want <= set(PORT_SOURCES)

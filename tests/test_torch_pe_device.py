@@ -201,7 +201,7 @@ def test_sweep_without_pairs_changes_nothing():
     idx = x["idx"]
     from fastquick_tpu_torch.ops.fm import DeviceFM
 
-    sa = DeviceFM.build(idx.fm_fwd, idx.fm_rev).sa
+    sa = DeviceFM.build(idx.fm_fwd, idx.fm_rev, "cpu").sa
     occ = [tpe.expand_occurrences(sa, idx.fm_fwd.n, _t(x["n_aln"][j]),
                                   _t(x["alns"][j]), _t(x["se"][j]["len"]),
                                   x["K"]) for j in (0, 1)]

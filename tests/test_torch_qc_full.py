@@ -98,7 +98,7 @@ def _both(world, reads, **kw):
 
 def test_synthetic_site_tables_match(world):
     text, _, tables, _ = world
-    got = tq.synthetic_site_tables(np.asarray(text))
+    got = tq.synthetic_site_tables(np.asarray(text), device="cpu")
     for f in TABLE_FIELDS:
         np.testing.assert_array_equal(getattr(got, f).numpy(),
                                       np.asarray(getattr(tables, f)))

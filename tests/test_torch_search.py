@@ -276,3 +276,42 @@ def test_chain_host_build_matches_plain(chain_world):
     both = (want[2] == 0) & (one[2] == 0)
     assert torch.equal(want[0][both], one[0][both])
     assert torch.equal(want[1][both], one[1][both])
+
+
+@pytest.mark.parametrize("chain", [1, 4])
+def test_engine_chain_matches_jax_and_native(chain):
+    """BatchEngine(chain=) on the CPU against the reference engine's XLA
+    path at the same chain length, pool and step cap (hits, fallback
+    count and causes) and against the native engine (hits)."""
+    from fastquick_tpu.align.engine import NativeEngine
+
+    idx = make_idx(seed=9)
+    reads_n = synth_reads(idx, 80, 19)
+    reads_x = synth_reads(idx, 80, 19)
+    reads_t = port_reads(synth_reads(idx, 80, 19))
+    NativeEngine(idx).align_batch(reads_n, GapOpt())
+    ex = jbs.BatchEngine(idx, max_batch=128, pool=512, step_cap=768,
+                         chain=chain, pallas=False)
+    ex.align_batch(reads_x, GapOpt())
+    et = tbs.BatchEngine(port_idx(idx), "cpu", pool=512, step_cap=768,
+                         chain=chain)
+    assert et.chain == chain
+    et.align_batch(reads_t, GapOpt())
+    assert et.last_fallback == ex.last_fallback
+    assert et.last_fb_causes == ex.last_fb_causes
+    for i, (n, x, t) in enumerate(zip(reads_n, reads_x, reads_t)):
+        tk = [aln_key(a) for a in t.aln]
+        assert tk == [aln_key(a) for a in x.aln], f"read {i} vs xla"
+        assert sorted(tk) == sorted(aln_key(a) for a in n.aln), (
+            f"read {i} vs native")
+
+
+def test_scan_path_refuses_chain():
+    """The scan kernel walks one base a step: any other chain length
+    raises when the engine is made (the reference's engine drops to its
+    XLA path instead)."""
+    with pytest.raises(ValueError, match="chain 2"):
+        tbs.BatchEngine(port_idx(make_idx(seed=1)), "cpu", pallas="scan",
+                        chain=2)
+    assert tbs.BatchEngine(port_idx(make_idx(seed=1)), "cpu", pallas="scan",
+                           chain=1).chain == 1
