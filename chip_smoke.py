@@ -29,9 +29,17 @@ Phases (any failure raises and the script exits non-zero):
    high-water marks: at a step cap of 256 that binds, with a fallback set
    other than chain 1's and both chain lengths timed, and at qc_step_full's
    own pool 256 and step cap 64 L, where most reads overflow the pool
-   (timed: the search_chain entry); and the drand48 kernel draws on
-   65,536 reads of random hit lists (testing/drand48_cases.py), equal to
-   its plain version in the selected words, rows and stream state, timed;
+   (timed: the search_chain entry); the drand48 kernel draws on 65,536
+   reads of random hit lists (testing/drand48_cases.py; the kernels
+   line's numbers), on a production-shaped batch of 200,000 mostly
+   single-row reads, and on that batch from the state whose first draw at
+   read 123,457 is 0 (the kernel's speculation breaks and resumes there),
+   each equal to its plain version in the selected words, rows and stream
+   state, timed; and the pairing kernel runs on 100,000 pairs at k_occ 32
+   (qc_step_full's first pass; the kernels line's numbers) and on 64 pairs
+   at k_occ2 512 (its second pass) of testing/pairing_cases.py, equal to
+   pairing_sweep_plain in every output field and cnt_chg; its launch
+   timed by CUDA events, and the wrapper with its sorts;
 3. small world: the port's ``index`` + ``align --device_qc`` on
    testing/synthworld.build_synth_pe_world, byte-identical on all 12
    product files to the port's ``align --engine host``, once with the
@@ -60,10 +68,12 @@ Phases (any failure raises and the script exits non-zero):
    row and every product file.  The exact redo is the native engine's.
    Each run logs its first pass's fallback, its stages' wall times (the
    card synced at each boundary), reads a second, its counters and its
-   launches, zeroed right before it.  After each run, every drand48 launch
-   it made is held to the plain version on its own inputs, and the
-   resident run's first-pass search launch to the plain search on 4,096
-   evenly spaced reads of its chunk.
+   launches, zeroed right before it, with its pairing, second_pass and
+   drand48 stages apart; its pairing kernel launches must equal the
+   sweeps it ran.  After each run, every drand48 launch and every pairing
+   sweep it made is held to the plain version on its own inputs (and
+   timed again on them), and the resident run's first-pass search launch
+   to the plain search on 4,096 evenly spaced reads of its chunk.
 
 6. pipeline: the stages after align.  On the small world (phase 3's),
    ``align --device_qc --shard_out`` on each half of its FASTQs by
@@ -171,6 +181,9 @@ KERNELS = {
     # no pallas_call: a lax.scan over the reads
     "drand48": ("fastquick_tpu_torch/csrc/drand48.cu",
                 "fastquick_tpu/ops/drand48_device.py:167"),
+    # no pallas_call: a lax.scan over each pair's entries (:391)
+    "pairing": ("fastquick_tpu_torch/csrc/pairing.cu",
+                "fastquick_tpu/ops/pe_device.py:221"),
 }
 # the chain-length check's step cap: low enough that some reads reach it
 CHAIN_CAP = 256
@@ -178,10 +191,12 @@ CHAIN_CAP = 256
 QC_POOL, QC_CHAIN, QC_CAP_PER_BASE = 256, 4, 64
 # production reads the program phase's plain search redoes (evenly spaced)
 PROGRAM_SEARCH_CHECK = 4096
-# dependent integer and double operations of one drand48 draw (the LCG's
-# 64-bit multiply-add and mask, the conversion, the double multiply and
-# the compare or truncation)
-OPS_DRAW = 10
+# the pairing kernel's shapes: qc_step_full's first pass (a batch's pairs
+# at k_occ 32) and its second (ovf_cap pairs at k_occ2 512)
+PAIRING_SHAPES = ((100_000, 32), (64, 512))
+# the drand48 draw's production-shaped batch, and the read of it whose
+# first draw the speculation-break check makes 0
+DRAW_PROD_READS, DRAW_ZERO_AT = 200_000, 123_457
 
 
 def log(msg: str) -> None:
@@ -544,6 +559,8 @@ def phase_kernels(seed: int, dev: str = "cuda", text_len: int = 6_500_000,
     log(f"sw     edge batch ({edge[0].shape[0]} jobs: ql 1-150 around the "
         f"strip of 32, rl 0/1/640, all-N, tied maxima): equal")
     res["drand48"] = drand48_case(dev, rng, n_draw)
+    pairs = [pairing_case(dev, rng, P, K) for P, K in PAIRING_SHAPES]
+    res["pairing"] = dict(pairs[0], second_pass=pairs[1])
     build.reset_launch_counts()
     return res
 
@@ -644,42 +661,157 @@ def same_draw(got, want, what: str) -> None:
             raise AssertionError(f"{what} in {name}, at {bad}")
 
 
-def drand48_case(dev, rng, n: int) -> dict:
-    """The drand48 kernel against its plain version on n reads of random
-    hit lists; kernel time by CUDA events, the plain version's once."""
+def same_sweep(got, want, what: str) -> None:
+    """Raise unless two pairing sweeps agree in every output field of both
+    ends and in cnt_chg."""
+    import torch
+
+    for j in (0, 1):
+        for k, w in want[j].items():
+            if not torch.equal(got[j][k], w):
+                bad = (got[j][k] != w).nonzero()[:5].flatten().tolist()
+                raise AssertionError(f"{what}: end {j} {k}, pairs {bad}")
+    if int(got[2]) != int(want[2]):
+        raise AssertionError(f"{what}: cnt_chg {int(got[2])} != "
+                             f"{int(want[2])}")
+
+
+def _draw_check(dev, n_aln, alns, state, what: str,
+                zero_at: int | None = None) -> dict:
+    """One batch through the drand48 kernel and its plain version (equal
+    in words, rows and final state), the kernel timed by CUDA events;
+    zero_at: a read that must select nothing (its first draw is 0)."""
     import torch
 
     from fastquick_tpu_torch.ops.drand48_device import (
         aln2seq_draw_scan,
         best_class,
         draw_scan_plain,
-        seed_state,
     )
-    from fastquick_tpu_torch.testing.drand48_cases import random_batch
-    from fastquick_tpu_torch.utils.bounds import bound
+    from fastquick_tpu_torch.utils.bounds import OPS_DRAW, bound
 
-    n_aln, alns, _ = random_batch(rng, n)
     na = torch.from_numpy(n_aln).to(dev)
     al = torch.from_numpy(alns).to(dev)
-    st = torch.from_numpy(seed_state(11)).to(dev)
+    st = torch.from_numpy(state).to(dev)
     k_out = aln2seq_draw_scan(na, al, st)
     walk: dict = {}
     t0 = time.perf_counter()
     p_out = draw_scan_plain(na, al, st, stats=walk)
     plain_ms = (time.perf_counter() - t0) * 1e3
-    same_draw(k_out, p_out, "drand48 kernel != plain")
+    same_draw(k_out, p_out, f"drand48 kernel != plain ({what})")
+    if zero_at is not None and (int(p_out[0][zero_at])
+                                or int(p_out[1][zero_at])):
+        raise AssertionError(f"drand48 ({what}): read {zero_at} selected a "
+                             "row: its first draw was not 0")
     ms = cuda_ms(lambda: aln2seq_draw_scan(na, al, st), 3)
-    rows = int(best_class(na, al).sum())
-    draws = walk["draws"]
-    # 12 bytes a read (n_aln in, the selected word and row out; the stream
-    # state stays in a register) and each best-class row read once; ~10
-    # dependent operations a draw
+    nb = best_class(na, al)
+    rows, draws, n = int(nb.sum()), walk["draws"], len(n_aln)
+    # 12 bytes a read (n_aln in, the selected word and row out) and each
+    # best-class row read once; ~10 dependent operations a draw
     bms, by = bound(12 * n + 12 * rows, draws * OPS_DRAW)
-    log(f"drand48 N={n}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
-        f"{bms:.5f} ms ({by}), {rows} best-class rows, {draws} draws; "
-        f"equal in words, rows and final state")
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=0, bound_ms=bms,
-                bound_by=by, reads=n, rows=rows, draws=draws)
+    out = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0, bound_ms=bms,
+               bound_by=by, reads=n, rows=rows, draws=draws,
+               single=int((nb == 1).sum()), multi=int((nb > 1).sum()))
+    log(f"drand48 N={n} ({what}): kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms, bound {bms:.5f} ms ({by}), {rows} best-class "
+        f"rows, {out['single']} single-row and {out['multi']} multi-row "
+        f"reads, {draws} draws; equal in words, rows and final state")
+    return out
+
+
+def drand48_case(dev, rng, n: int) -> dict:
+    """The drand48 kernel against its plain version on n reads of random
+    hit lists (the kernels line's numbers), on a production-shaped batch
+    (mostly single-row reads) and on that batch from the state whose
+    first draw at read DRAW_ZERO_AT is 0, which breaks the kernel's
+    speculation there (it and the reads before it are made single-row, so
+    the state is known)."""
+    from fastquick_tpu_torch.ops.drand48_device import seed_state
+    from fastquick_tpu_torch.testing.drand48_cases import (
+        production_batch,
+        random_batch,
+        zero_draw_state,
+    )
+
+    n_aln, alns, _ = random_batch(rng, n)
+    res = _draw_check(dev, n_aln, alns, seed_state(11), "random hit lists")
+    n_aln, alns = production_batch(rng, DRAW_PROD_READS)
+    res["production"] = _draw_check(dev, n_aln, alns, seed_state(11),
+                                    "production-shaped")
+    n_aln[:DRAW_ZERO_AT + 1] = 1
+    alns[:DRAW_ZERO_AT + 1, 1:] = 0
+    res["zero_draw"] = _draw_check(
+        dev, n_aln, alns, zero_draw_state(2 * DRAW_ZERO_AT),
+        f"a first draw of 0 at read {DRAW_ZERO_AT}", DRAW_ZERO_AT)
+    return res
+
+
+def pairing_case(dev, rng, P: int, K: int) -> dict:
+    """The pairing kernel against pairing_sweep_plain on P pairs at
+    occurrence cap K (testing/pairing_cases.py): every output field and
+    cnt_chg equal; the kernel's launch timed by CUDA events around the
+    wrapper's one launch, the wrapper whole (sorts and table included) and
+    the plain version by events too."""
+    import torch
+
+    from fastquick_tpu_torch.align.opts import G_LOG_N
+    from fastquick_tpu_torch.kernels import build
+    from fastquick_tpu_torch.ops.pe_device import (
+        pairing_sweep,
+        pairing_sweep_plain,
+        sweep_inputs,
+    )
+    from fastquick_tpu_torch.testing.pairing_cases import random_pairs
+    from fastquick_tpu_torch.utils.bounds import pairing_bound
+
+    occ0, occ1, a0, a1, se0, se1, ok, ii = random_pairs(rng, P, K)
+
+    def t(x):
+        return torch.from_numpy(x).to(dev)
+
+    def d(x):
+        return {k: t(v) for k, v in x.items()}
+
+    args = (d(occ0), d(occ1), t(a0), t(a1), d(se0), d(se1), t(ok), t(ii),
+            3, 500, torch.tensor(G_LOG_N, dtype=torch.long, device=dev))
+    got = pairing_sweep(*args)
+    same_sweep(got, pairing_sweep_plain(*args),
+               f"pairing kernel != plain at P={P} K={K}")
+    lib = build.cuda_library()
+    launch = lib.fq_pairing_launch
+    ev = []
+
+    def timed_launch(*a):
+        e = (torch.cuda.Event(enable_timing=True),
+             torch.cuda.Event(enable_timing=True))
+        e[0].record()
+        rc = launch(*a)
+        e[1].record()
+        ev.append(e)
+        return rc
+
+    with mock.patch.object(lib, "fq_pairing_launch", timed_launch):
+        for _ in range(4):
+            pairing_sweep(*args)
+    torch.cuda.synchronize()
+    runs = [a.elapsed_time(b) for a, b in ev[1:]]
+    ms = sum(runs) / len(runs)
+    wrapper_ms = cuda_ms(lambda: pairing_sweep(*args), 3)
+    plain_ms = cuda_ms(lambda: pairing_sweep_plain(*args), 1)
+    pos, ent, _, pen, *_ = sweep_inputs(*args[:8], args[10])
+    n_valid = int((ent != 0).sum())
+    n_rev = int((((ent >> 18) & 1) * (ent >> 27)).sum())
+    bms, by = pairing_bound(P, n_valid, n_rev, pen.numel())
+    out = dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+               max_abs_err=0, bound_ms=bms, bound_by=by, pairs=P, k_occ=K,
+               entries=n_valid, reverse=n_rev, cnt_chg=int(got[2]),
+               proper=int(got[0]["proper"].sum()))
+    log(f"pairing P={P} K={K}: kernel {ms:.3f} ms (runs "
+        f"{', '.join(f'{x:.3f}' for x in runs)}), with its sorts and table "
+        f"{wrapper_ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bms:.5f} ms "
+        f"({by}); {n_valid} entries, {n_rev} reverse, {out['proper']} "
+        f"proper pairs, cnt_chg {out['cnt_chg']}; every output equal")
+    return out
 
 
 def width_case(fm, units, sel, reps: int = 3):
@@ -924,15 +1056,16 @@ def _stage_line(times: dict) -> str:
 
 @contextlib.contextmanager
 def _recording(calls: dict):
-    """Record what qc_step_full hands its drand48 and resident-search
-    wrappers and what they return: every draw in calls["draw"], the first
-    search (its inputs cloned before the kernel edits widths in place) in
-    calls["search"]."""
+    """Record what qc_step_full hands its drand48, resident-search and
+    pairing wrappers and what they return: every draw in calls["draw"],
+    the first search (its inputs cloned before the kernel edits widths in
+    place) in calls["search"], every pairing sweep in calls["pairing"]."""
     import torch
 
     from fastquick_tpu_torch.ops import qc_full
 
     draw, search = qc_full.aln2seq_draw_scan, qc_full.resident_search
+    sweep = qc_full.pairing_sweep
 
     def record_draw(n_aln, alns, state0):
         args = (n_aln.clone(), alns.clone(),
@@ -950,15 +1083,56 @@ def _recording(calls: dict):
             calls["search"].append((fm, P, args, out))
         return out
 
+    def record_sweep(*args):
+        out = sweep(*args)
+        calls["pairing"].append((args, out))
+        return out
+
     with mock.patch.object(qc_full, "aln2seq_draw_scan", record_draw), \
-            mock.patch.object(qc_full, "resident_search", record_search):
+            mock.patch.object(qc_full, "resident_search", record_search), \
+            mock.patch.object(qc_full, "pairing_sweep", record_sweep):
         yield
+
+
+def _check_sweeps(sweeps: list, name: str) -> list:
+    """Each recorded pairing sweep of a production run against the plain
+    version on the same inputs: every output field and cnt_chg equal."""
+    import torch
+
+    from fastquick_tpu_torch.ops.pe_device import (
+        pairing_sweep,
+        pairing_sweep_plain,
+    )
+
+    out = []
+    for i, (args, got) in enumerate(sweeps):
+        t0 = time.perf_counter()
+        want = pairing_sweep_plain(*args)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        same_sweep(got, want, f"production {name}, pairing sweep {i} != "
+                   "plain")
+        P, K = args[0]["pos"].shape
+        out.append(dict(pairs=P, k_occ=K, cnt_chg=int(got[2]),
+                        plain_s=plain_s,
+                        ms=cuda_ms(lambda: pairing_sweep(*args), 3)))
+    log(f"program production, {name}: its {len(sweeps)} pairing sweeps "
+        f"equal to plain in every output and cnt_chg ("
+        + ", ".join(f"{c['pairs']} pairs at K {c['k_occ']}, cnt_chg "
+                    f"{c['cnt_chg']}, sweep with its sorts {c['ms']:.3f} ms, "
+                    f"plain {c['plain_s']:.2f}s" for c in out) + ")")
+    return out
 
 
 def _check_draws(draws: list, name: str) -> list:
     """Each recorded drand48 launch of a production run against the plain
-    version on the same inputs: words, rows and final state equal."""
-    from fastquick_tpu_torch.ops.drand48_device import draw_scan_plain
+    version on the same inputs: words, rows and final state equal; the
+    kernel timed again on them by CUDA events."""
+    from fastquick_tpu_torch.ops.drand48_device import (
+        aln2seq_draw_scan,
+        best_class,
+        draw_scan_plain,
+    )
 
     out = []
     for i, (args, got) in enumerate(draws):
@@ -968,12 +1142,17 @@ def _check_draws(draws: list, name: str) -> list:
         plain_s = time.perf_counter() - t0
         same_draw(got, want, f"production {name}, drand48 launch {i} != "
                   "plain")
+        nb = best_class(args[0], args[1])
         out.append(dict(reads=int(args[0].shape[0]), draws=walk["draws"],
-                        plain_s=plain_s))
+                        single=int((nb == 1).sum()),
+                        multi=int((nb > 1).sum()), plain_s=plain_s,
+                        ms=cuda_ms(lambda: aln2seq_draw_scan(*args), 3)))
     log(f"program production, {name}: its {len(draws)} drand48 launches "
         f"equal to plain in words, rows and state ("
-        + ", ".join(f"{c['reads']} reads, {c['draws']} draws, plain "
-                    f"{c['plain_s']:.2f}s" for c in out) + ")")
+        + ", ".join(f"{c['reads']} reads ({c['single']} single-row, "
+                    f"{c['multi']} multi-row), {c['draws']} draws, kernel "
+                    f"{c['ms']:.3f} ms, plain {c['plain_s']:.2f}s"
+                    for c in out) + ")")
     return out
 
 
@@ -1092,7 +1271,7 @@ def phase_program(work: Path, logf, seed: int, pairs: int,
                                          step_cap=QC_CAP_PER_BASE * 160)),
                        ("scan", dict(pool=512, chain=1, step_cap=768))):
         world["opt_args"].update(opts)
-        calls: dict = {"draw": [], "search": []}
+        calls: dict = {"draw": [], "search": [], "pairing": []}
         build.reset_launch_counts()
         times = {}
         t0 = time.perf_counter()
@@ -1130,7 +1309,18 @@ def phase_program(work: Path, logf, seed: int, pairs: int,
             f"{step_s:.3f}s ({n_reads / step_s:.0f} reads/s); stages "
             f"{_stage_line(times)} (host redo by {res['redo_engine']}); "
             f"{counters}; launches {launches}")
+        if launches["pairing"] != len(calls["pairing"]) or \
+                not launches["pairing"]:
+            raise AssertionError(f"production {name}: {len(calls['pairing'])}"
+                                 f" pairing sweeps, {launches['pairing']} "
+                                 "pairing kernel launches")
+        log(f"program production, {name}: pairing "
+            f"{times.get('pairing', 0):.3f}s, second_pass "
+            f"{times.get('second_pass', 0):.3f}s, drand48 "
+            f"{times.get('drand48', 0):.3f}s; {launches['pairing']} pairing "
+            f"launches, one a sweep")
         res[name]["draw_checks"] = _check_draws(calls["draw"], name)
+        res[name]["sweep_checks"] = _check_sweeps(calls["pairing"], name)
         if calls["search"]:
             res[name]["search_check"] = _check_search(calls["search"][0],
                                                       name)
@@ -1797,7 +1987,7 @@ def main() -> int:
     program = result["program"]["resident"]["launches"]
     launches = dict(prod["launches"], scan=prod["scan"]["launches"]["scan"],
                     search_chain=program["search_chain"],
-                    drand48=program["drand48"])
+                    drand48=program["drand48"], pairing=program["pairing"])
     missing = [k for k in KERNELS if not launches.get(k)]
     if missing:
         raise AssertionError(f"main path launched no {missing} kernel")

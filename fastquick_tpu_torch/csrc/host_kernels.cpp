@@ -1,13 +1,14 @@
 // Host (g++) build of the kernels' bodies, for the CPU tests: the same
 // width_unit / fq_resident_read / fq_scan_* round pieces / sw_lane_step /
-// fq_drand_read code that nvcc compiles into width.cu, search.cu,
-// scan.cu, sw.cu and drand48.cu, with the kernels' argument layouts and
-// their order of evaluation emulated serially.  Never used on the product
-// path.
+// fq_drand_* / fq_pair_sweep code that nvcc compiles into width.cu,
+// search.cu, scan.cu, sw.cu, drand48.cu and pairing.cu, with the kernels'
+// argument layouts and their order of evaluation emulated serially.
+// Never used on the product path.
 #include <algorithm>
 #include <vector>
 
 #include "drand48_body.cuh"
+#include "pairing_body.cuh"
 #include "search_body.cuh"
 #include "sw_body.cuh"
 #include "width_body.cuh"
@@ -182,18 +183,124 @@ extern "C" int fq_sw_host(const uint8_t* refs, const uint8_t* qs,
   return 0;
 }
 
-// The drand48 kernel's walk (drand48.cu's fq_drand48_launch arguments):
-// the batch's reads in order on one stream, each read's first row read
-// from its hit rows as the kernel reads it from shared memory.
+// The drand48 kernel's tiles (drand48.cu's fq_drand48_launch arguments),
+// their phases in order: classify and rank the tile's reads (the tile ends
+// where the serial reads' rows would pass FQ_DRAND_ROWS), walk the serial
+// reads with a jump across each run of single reads and each row's
+// acceptance threshold, draw each read from its own start state, and end
+// the tile at its first single read whose first draw is 0, the
+// next tile starting after it from state 0.  Outputs are written where
+// the kernel writes them, so a read after a broken one is written twice.
 extern "C" int fq_drand48_host(const int32_t* n_aln, const int32_t* alns,
                                int N, const int32_t* state_in, int32_t* f0,
                                int32_t* row, int32_t* state_out) {
-  uint64_t x = fq_drand_load(state_in);
-  for (int r = 0; r < N; ++r) {
-    const int32_t* rows = alns + (int64_t)r * FQ_DRAND_A_MAX * 3;
-    fq_drand_read(x, fq_drand_best(rows, n_aln[r]), rows, rows, f0 + r,
-                  row + r);
+  const int T = FQ_DRAND_TILE;
+  std::vector<int> nb(T), cls(T), seg(T), sgl(T), ser, sser, off;
+  std::vector<int32_t> f(T), k(T), w(T), rw, rk, rf;
+  std::vector<uint64_t> pre, post, rt;
+  uint64_t ta[FQ_DRAND_JUMP_BITS], tc[FQ_DRAND_JUMP_BITS];
+  for (int b = 0; b < FQ_DRAND_JUMP_BITS; ++b)
+    fq_drand_power(1u << b, ta[b], tc[b]);
+  uint64_t x0 = fq_drand_load(state_in);
+  int base = 0;
+  while (base < N) {
+    // 1. classify and rank
+    int n_t = 0, need = 0, n_sgl = 0;
+    ser.clear();
+    sser.clear();
+    off.clear();
+    rw.clear();
+    rk.clear();
+    rf.clear();
+    rt.clear();
+    for (int t = 0; t < T && base + t < N; ++t) {
+      const int32_t* rows = alns + (int64_t)(base + t) * FQ_DRAND_A_MAX * 3;
+      nb[t] = fq_drand_best(rows, n_aln[base + t]);
+      f[t] = rows[0];
+      k[t] = rows[1];
+      w[t] = rows[2] - rows[1] + 1;
+      cls[t] = fq_drand_class(nb[t], w[t]);
+      if (cls[t] == FQ_DRAND_SERIAL) {
+        if (need + nb[t] > FQ_DRAND_ROWS) break;
+        need += nb[t];
+      }
+      seg[t] = (int)ser.size();
+      sgl[t] = n_sgl;
+      if (cls[t] == FQ_DRAND_SERIAL) {
+        ser.push_back(t);
+        sser.push_back(n_sgl);
+        off.push_back((int)rw.size());
+        int32_t cnt = 0;
+        for (int i = 0; i < nb[t]; ++i) {
+          rf.push_back(rows[3 * i]);
+          rk.push_back(rows[3 * i + 1]);
+          rw.push_back(rows[3 * i + 2] - rows[3 * i + 1] + 1);
+          rt.push_back(fq_drand_threshold(rw.back(), cnt));
+          cnt += rw.back();
+        }
+      }
+      n_sgl += cls[t] == FQ_DRAND_SINGLE;
+      n_t = t + 1;
+    }
+    // 2. the serial walk
+    const int n_ser = (int)ser.size();
+    pre.resize(n_ser);
+    post.resize(n_ser);
+    uint64_t x = x0, a, c;
+    for (int j = 0; j < n_ser; ++j) {
+      fq_drand_power(2u * (sser[j] - (j ? sser[j - 1] : 0)), a, c);
+      x = fq_drand_apply(a, c, x);
+      pre[j] = x;
+      x = fq_drand_chain(x, nb[ser[j]], rt.data() + off[j]);
+      post[j] = x;
+    }
+    const uint64_t xe = fq_drand_jump(
+        ta, tc, 2u * (n_sgl - (n_ser ? sser[n_ser - 1] : 0)), x);
+    // 3. each read from its own start state
+    int brk = T;
+    for (int t = 0; t < n_t; ++t) {
+      const int r = base + t, j = seg[t];
+      if (cls[t] == FQ_DRAND_SERIAL) {
+        uint64_t xs = pre[j];
+        const int o = off[j];
+        fq_drand_walk(xs, nb[t], rt.data() + o, rk.data() + o,
+                      rw.data() + o, rf.data() + o, f0[r], row[r]);
+      } else if (cls[t] == FQ_DRAND_SINGLE) {
+        const uint64_t xs = fq_drand_jump(
+            ta, tc, 2u * (sgl[t] - (j ? sser[j - 1] : 0)),
+            j ? post[j - 1] : x0);
+        if (!fq_drand_single(xs, f[t], k[t], w[t], f0[r], row[r]))
+          brk = std::min(brk, t);
+      } else if (cls[t] == FQ_DRAND_EMPTY) {
+        f0[r] = 0;
+        row[r] = 0;
+      }
+    }
+    // 4. the next tile
+    if (brk < n_t) {
+      f0[base + brk] = 0;
+      row[base + brk] = 0;
+      x0 = 0;
+      base += brk + 1;
+    } else {
+      x0 = xe;
+      base += n_t;
+    }
   }
-  fq_drand_store(x, state_out);
+  fq_drand_store(x0, state_out);
+  return 0;
+}
+
+// The pairing kernel's threads (pairing.cu's fq_pairing_launch
+// arguments), one pair after another.
+extern "C" int fq_pairing_host(int P, int NK, const int32_t* pos_s,
+                               const int32_t* ent_s, const int32_t* se,
+                               const int32_t* pen, const int32_t* g_log_n,
+                               int has_high, long long high_b, int max_isize,
+                               int s_mm, int32_t* out, int32_t* chg) {
+  const FqPairParams prm = {has_high, (int64_t)high_b, max_isize, s_mm};
+  for (int p = 0; p < P; ++p)
+    chg[p] = fq_pair_sweep(p, P, NK, pos_s, ent_s, se, pen, g_log_n, prm,
+                           out);
   return 0;
 }

@@ -36,7 +36,7 @@ GXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
 
 # "search_chain": the resident search kernel's chain-length build (CH > 1)
 launch_counts = {"width": 0, "search": 0, "search_chain": 0, "scan": 0,
-                 "sw": 0, "drand48": 0}
+                 "sw": 0, "drand48": 0, "pairing": 0}
 build_info: dict = {}
 
 _lock = threading.Lock()
@@ -45,6 +45,7 @@ _host_lib = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 
 def reset_launch_counts() -> None:
@@ -141,6 +142,9 @@ def cuda_library() -> ctypes.CDLL:
             lib.fq_sw_launch.argtypes = [_P] * 4 + [_I] * 3 + [_P] * 2
             lib.fq_drand48_launch.restype = _I
             lib.fq_drand48_launch.argtypes = [_P, _P, _I] + [_P] * 5
+            lib.fq_pairing_launch.restype = _I
+            lib.fq_pairing_launch.argtypes = ([_I, _I] + [_P] * 5
+                                              + [_I, _L, _I, _I] + [_P] * 3)
             _cuda_lib = lib
         return _cuda_lib
 
@@ -167,6 +171,9 @@ def host_library() -> ctypes.CDLL:
             lib.fq_sw_host.argtypes = [_P] * 4 + [_I] * 3 + [_P]
             lib.fq_drand48_host.restype = _I
             lib.fq_drand48_host.argtypes = [_P, _P, _I] + [_P] * 4
+            lib.fq_pairing_host.restype = _I
+            lib.fq_pairing_host.argtypes = ([_I, _I] + [_P] * 5
+                                            + [_I, _L, _I, _I] + [_P] * 2)
             _host_lib = lib
         return _host_lib
 

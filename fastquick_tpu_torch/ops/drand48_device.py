@@ -8,14 +8,21 @@ reservoir acceptance (``drand48() * (width + cnt) > cnt``), and each
 acceptance takes a second draw for the SA-row offset (``k + (bwtint_t)
 (width * drand48())``).
 
-The scan is sequential by construction (read r+1's draws depend on how
-many reads r consumed).  ``aln2seq_draw_scan`` launches the CUDA kernel
-(csrc/drand48.cu: one thread walks the batch with a uint64 LCG and IEEE
-double multiplies, exactly C's arithmetic) for CUDA tensors, and runs the
-plain version (``draw_scan_plain``: Python ints and floats, which are C
-doubles) for CPU tensors.  The stream state goes in and out as the
-reference package's four 12-bit limbs (``seed_state``), so a batch's
-``_drand_state`` continues the next batch's stream in either package.
+The stream is sequential (read r+1's draws depend on how many reads r
+consumed), but most of its consumption is known in advance: a read with
+an empty best class takes no draw, a read whose best class is one row
+takes two unless its first draw is 0.  ``aln2seq_draw_scan`` launches the
+CUDA kernel (csrc/drand48.cu) for CUDA tensors: per tile of reads, a
+parallel pass classifies the reads, one thread walks only the reads of
+larger best classes, crossing each run of single-row reads with one affine
+jump of the LCG, then every single-row read draws from its own start state
+in parallel; a first draw of 0 ends the tile there and the walk resumes
+after it.  Its arithmetic is C's: a uint64 LCG and IEEE double
+multiplies.  CPU tensors run the plain version (``draw_scan_plain``:
+Python ints and floats, which are C doubles, read by read).  The stream
+state goes in and out as the reference package's four 12-bit limbs
+(``seed_state``), so a batch's ``_drand_state`` continues the next
+batch's stream in either package.
 
 Exactness domain: the stream matches the host oracle for every read the
 search kernel finished (fallback reads consume their draws on the host

@@ -8,11 +8,13 @@ reference package's results bit for bit:
   moments come from the histogram, in float32 as in the reference package
   (including the C quirk of the variance accumulator starting at -1.0,
   bwape.c:85-88);
-- pairing (bwape.c:119-215) as a lockstep loop over each pair's
-  position-sorted occurrence list, with the u64 pair-score key (score<<32
-  | hash_64) carried as two 32-bit words -- including the reference's
-  OR-collision of the hash's high word into the score word and the `s>>32
-  < (o_score<<32 & U64MAX)` comparison, which reduces to `o_lo != 0`;
+- pairing (bwape.c:119-215) over each pair's position-sorted occurrence
+  list: on the card one CUDA kernel (csrc/pairing.cu, a thread a pair,
+  the u64 pair-score key a uint64_t), on the CPU the plain version, a
+  lockstep loop over the entries with the key (score<<32 | hash_64)
+  carried as two 32-bit words -- both with the reference's OR-collision
+  of the hash's high word into the score word and the `s>>32 <
+  (o_score<<32 & U64MAX)` comparison, which reduces to `o_lo != 0`;
 - ProcessPairStatus (src/StatCollector.cpp:623-948) as accumulators.
 
 Integer types: a "u32" below is an int64 tensor holding a value in [0,
@@ -23,8 +25,12 @@ inside and come out in the reference's dtypes (int32 values, bool flags).
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
+
+from ..kernels import build
 
 ISIZE_HIST = 100_000  # candidate inserts < 100000 (bwape.c:75)
 M32 = 0xFFFFFFFF
@@ -230,6 +236,9 @@ def expand_occurrences(sa, n_text: int, n_aln, alns, lens, k_occ: int):
 # ---------------- pairing sweep ----------------
 
 INT_MIN = -(2 ** 31)
+# the per-end fields the sweep reads (all of them) and writes (all but len)
+SE_FIELDS = ("pos", "strand", "mapq", "seq_q", "n_mm", "n_gapo", "n_gape",
+             "len")
 
 
 def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -237,25 +246,14 @@ def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return a.gather(1, idx[:, None])[:, 0]
 
 
-def pairing_sweep(occ0, occ1, alns0, alns1, se0, se1, pair_ok,
-                  ii, s_mm: int, max_isize: int, g_log_n):
-    """pairing (bwape.c:119-215) vectorized over P pairs.
-
-    occj: expand_occurrences dicts for end j; alnsj: packed rows
-    (P, A_MAX, 3); sej: dict of SE state per end (pos, strand, mapq,
-    seq_q, n_mm, n_gapo, n_gape, len); pair_ok: (P,) pairs that enter
-    pairing at all.  Returns per-end updated state (with the chosen-pair
-    flag "proper", the SAM_FPP analog) + cnt_chg."""
+def _merged_entries(occ0, occ1, pair_ok):
+    """Each pair's merged entry list in C's sort order (pos<<32 | row<<1 |
+    end: two stable sorts, the sub-key first).  Returns (P, 2K) int64
+    planes pos, row, end and the bool plane valid."""
     P, K = occ0["pos"].shape
-    NK = 2 * K
     dev = occ0["pos"].device
-    L = lambda x: x.long()  # noqa: E731
-    max_len = torch.maximum(L(se0["len"]), L(se1["len"]))
-
-    # merged entry list per pair, C sort key (pos<<32 | row<<1 | end):
-    # two stable sorts, the sub-key first
-    pos = torch.cat([L(occ0["pos"]), L(occ1["pos"])], 1)
-    row = torch.cat([L(occ0["row"]), L(occ1["row"])], 1)
+    pos = torch.cat([occ0["pos"].long(), occ1["pos"].long()], 1)
+    row = torch.cat([occ0["row"].long(), occ1["row"].long()], 1)
     end = torch.cat([torch.zeros((P, K), dtype=_i64, device=dev),
                      torch.ones((P, K), dtype=_i64, device=dev)], 1)
     valid = torch.cat([occ0["valid"], occ1["valid"]], 1) & pair_ok[:, None]
@@ -267,18 +265,111 @@ def pairing_sweep(occ0, occ1, alns0, alns1, se0, se1, pair_ok,
     o2 = torch.argsort(torch.where(valid_s, pos_s, 0x7FFFFFFF), dim=1,
                        stable=True)
     order = o1.gather(1, o2)
-    pos = pos.gather(1, order)
-    row = row.gather(1, order)
-    end = end.gather(1, order)
-    valid = valid.gather(1, order)
+    return (pos.gather(1, order), row.gather(1, order),
+            end.gather(1, order), valid.gather(1, order))
 
+
+def _row_meta(m0, m1, e_arr, r_arr):
+    """The packed word of row r_arr of end e_arr, per pair (mj: end j's
+    (P, A_MAX) packed words as int64)."""
+    return torch.where(e_arr == 0, m0.gather(1, r_arr),
+                       m1.gather(1, r_arr))
+
+
+def _penalty(l, avg, std):
+    """The insert-size penalty of insert l in C's float semantics, with
+    the INT_MIN cast of inf/nan ratios (align/pe.py:156-167)."""
+    ratio = _div(torch.abs(_f32(l) - avg), std)
+    p = -4.343 * torch.log(_erfc_half(ratio)) + 0.499
+    bad = torch.isnan(p) | torch.isinf(p) | torch.isnan(ratio)
+    return torch.where(bad, INT_MIN, p.long())
+
+
+def pairing_sweep(occ0, occ1, alns0, alns1, se0, se1, pair_ok,
+                  ii, s_mm: int, max_isize: int, g_log_n):
+    """pairing (bwape.c:119-215) over P pairs.
+
+    occj: expand_occurrences dicts for end j; alnsj: packed rows
+    (P, A_MAX, 3); sej: dict of SE state per end (pos, strand, mapq,
+    seq_q, n_mm, n_gapo, n_gape, len); pair_ok: (P,) pairs that enter
+    pairing at all.  Returns per-end updated state (with the chosen-pair
+    flag "proper", the SAM_FPP analog) + cnt_chg.
+
+    CUDA tensors launch the pairing kernel (csrc/pairing.cu, one thread a
+    pair) on the entries sorted here; CPU tensors run
+    pairing_sweep_plain."""
+    if occ0["pos"].device.type == "cpu":
+        return pairing_sweep_plain(occ0, occ1, alns0, alns1, se0, se1,
+                                   pair_ok, ii, s_mm, max_isize, g_log_n)
+    dev = occ0["pos"].device
+    args = sweep_inputs(occ0, occ1, alns0, alns1, se0, se1, pair_ok, ii,
+                        g_log_n)
+    build.require_cuda(*args[:5])
+    P = args[0].shape[0]
+    out = torch.empty((2, 8, P), dtype=torch.int32, device=dev)
+    chg = torch.zeros(P, dtype=torch.int32, device=dev)
+    p = build.ptr
+    pos, ent, se, pen, g, has_high, high_b = args
+    rc = build.cuda_library().fq_pairing_launch(
+        P, pos.shape[1], p(pos), p(ent), p(se), p(pen), p(g), has_high,
+        high_b, max_isize, s_mm, p(out), p(chg),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    build.check(rc, "pairing")
+    build.launch_counts["pairing"] += 1
+    return sweep_outputs(se0, se1, out, chg)
+
+
+def sweep_inputs(occ0, occ1, alns0, alns1, se0, se1, pair_ok, ii, g_log_n):
+    """The pairing kernel's inputs, int32 and contiguous: the sorted
+    entries' positions and words (P, 2K) (csrc/pairing_body.cuh), the SE
+    state (2, 8, P) in SE_FIELDS order, the penalty table, g_log_n; then
+    has_high (0/1) and high_b."""
+    i32 = torch.int32
+    dev = occ0["pos"].device
+    pos, row, end, valid = _merged_entries(occ0, occ1, pair_ok)
+    meta = _row_meta(alns0[:, :, 0].long(), alns1[:, :, 0].long(), end,
+                     row) & 0x3FFFFFF
+    ent = torch.where(valid, meta | (end << 26) | (1 << 27), 0).to(
+        i32).contiguous()
+    se = torch.stack([torch.stack([s[f].to(i32) for f in SE_FIELDS])
+                      for s in (se0, se1)]).contiguous()
+    has_high = bool(ii[4] > 0.0)
+    high_b = int(ii[5].long())
+    # the penalty of every insert the window admits (max_len <= l <=
+    # high_b), by the plain version's own operations
+    pen = (_penalty(torch.arange(max(high_b, 0) + 1, device=dev), ii[1],
+                    ii[2]).to(i32) if has_high
+           else torch.zeros(1, dtype=i32, device=dev))
+    return (pos.to(i32).contiguous(), ent, se, pen,
+            g_log_n.to(i32).contiguous(), int(has_high), high_b)
+
+
+def sweep_outputs(se0, se1, out, chg):
+    """pairing_sweep's result from the kernel's (2, 8, P) out and (P,)
+    chg: each end's dict with its fields replaced, and cnt_chg."""
+    res = []
+    for j, s in enumerate((se0, se1)):
+        o = dict(s)
+        for i, f in enumerate(SE_FIELDS[:7]):
+            o[f] = out[j, i]
+        o["proper"] = out[j, 7] != 0
+        res.append(o)
+    return res[0], res[1], chg.sum().to(torch.int32)
+
+
+def pairing_sweep_plain(occ0, occ1, alns0, alns1, se0, se1, pair_ok,
+                        ii, s_mm: int, max_isize: int, g_log_n):
+    """The plain version of pairing_sweep: the sweep vectorized over the
+    pairs, a Python loop over the NK = 2K entries, with the u64 pair-score
+    key as two u32 words."""
+    P, K = occ0["pos"].shape
+    NK = 2 * K
+    dev = occ0["pos"].device
+    L = lambda x: x.long()  # noqa: E731
+    max_len = torch.maximum(L(se0["len"]), L(se1["len"]))
+    pos, row, end, valid = _merged_entries(occ0, occ1, pair_ok)
     m0_all, m1_all = L(alns0[:, :, 0]), L(alns1[:, :, 0])
-
-    def row_meta(e_arr, r_arr):
-        return torch.where(e_arr == 0, m0_all.gather(1, r_arr),
-                           m1_all.gather(1, r_arr))
-
-    meta = row_meta(end, row)
+    meta = _row_meta(m0_all, m1_all, end, row)
     strand = (meta >> 18) & 1
     score = (meta >> 19) & 127
     len_of_end = torch.where(end == 0, L(se0["len"])[:, None],
@@ -287,14 +378,6 @@ def pairing_sweep(occ0, occ1, alns0, alns1, se0, se1, pair_ok,
     avg, std = ii[1], ii[2]
     has_high = bool(ii[4] > 0.0)
     high_b = ii[5].long()
-
-    def penalty(l):
-        # C float semantics incl. the INT_MIN cast of inf/nan ratios
-        # (align/pe.py:156-167)
-        ratio = _div(torch.abs(_f32(l) - avg), std)
-        p = -4.343 * torch.log(_erfc_half(ratio)) + 0.499
-        bad = torch.isnan(p) | torch.isinf(p) | torch.isnan(ratio)
-        return torch.where(bad, INT_MIN, p.long())
 
     z = torch.zeros(P, dtype=_i64, device=dev)
     ones = torch.full((P,), M32, dtype=_i64, device=dev)
@@ -323,13 +406,13 @@ def pairing_sweep(occ0, occ1, alns0, alns1, se0, se1, pair_ok,
             l = e_pos + e_len - u_pos
             gate = (is_rev & u_valid & (e_pos > u_pos) & (l >= max_len)
                     & ((l <= high_b) if has_high else (l <= max_isize)))
-            u_score = (row_meta(opp[:, None], u_row[:, None])[:, 0] >> 19) \
-                & 127
+            u_score = (_row_meta(m0_all, m1_all, opp[:, None],
+                                 u_row[:, None])[:, 0] >> 19) & 127
             s = (e_score + u_score) * 10
             if has_high:
                 # int32 add wraps like C's (s + INT_MIN stays the low word
                 # the u64 key sees)
-                s = ((s + penalty(l) + 2 ** 31) & M32) - 2 ** 31
+                s = ((s + _penalty(l, avg, std) + 2 ** 31) & M32) - 2 ** 31
             # key = (s<<32) | hash_64(u_pos<<32 | v_pos): the hash's high
             # word OR-collides into the score word (C quirk)
             h_hi, h_lo = hash_64_u32(u_pos, e_pos)

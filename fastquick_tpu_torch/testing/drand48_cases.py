@@ -3,7 +3,10 @@
 ``random_batch`` draws hit lists shaped like the search kernel's output
 (the generator of tests/test_drand48_device.py): nondecreasing scores,
 one to three score classes, widths from 1 to 100,000 (wide repeat
-intervals), every fifth read empty.  ``boundary_cases`` engineers single
+intervals), every fifth read empty.  ``single_batch`` gives every read
+one hit row; ``production_batch`` mostly so, as a real sample's reads
+are; ``zero_draw_state`` the state from which a given draw of the stream
+is 0.  ``boundary_cases`` engineers single
 reads whose draws land within a few units of a double rounding boundary:
 an acceptance product next to cnt << 48 and an offset product next to a
 multiple of 2^48, each with the stream state that produces it.
@@ -53,6 +56,42 @@ def random_batch(rng: np.random.Generator, n_reads: int):
             alns[r, i, 2] = t[5]
         py.append([Aln(*t) for t in rows])
     return n_aln, alns, py
+
+
+def single_batch(rng: np.random.Generator, n_reads: int):
+    """(n_aln (N,), alns (N, 48, 3)) int32: each read one row of width 1
+    to 1,000 with a nonzero packed word."""
+    n_aln = np.ones(n_reads, np.int32)
+    alns = np.zeros((n_reads, A_MAX, 3), np.int32)
+    k = rng.integers(0, 1 << 20, n_reads)
+    alns[:, 0, 0] = rng.integers(1, 1 << 26, n_reads)
+    alns[:, 0, 1] = k
+    alns[:, 0, 2] = k + rng.integers(0, 1000, n_reads)
+    return n_aln, alns
+
+
+def production_batch(rng: np.random.Generator, n_reads: int,
+                     empty: float = 0.03, multi: float = 0.03):
+    """single_batch with a share `empty` of reads unmapped and a share
+    `multi` whose best class is 2 to 8 rows of one repeat (consecutive SA
+    intervals)."""
+    n_aln, alns = single_batch(rng, n_reads)
+    u = rng.random(n_reads)
+    n_aln[u < empty] = 0
+    rep = np.nonzero(u > 1.0 - multi)[0]
+    nb = rng.integers(2, 9, len(rep))
+    for r, m in zip(rep, nb):
+        w = alns[r, 0, 2] - alns[r, 0, 1] + 1
+        for i in range(1, m):
+            alns[r, i] = alns[r, 0]
+            alns[r, i, 1:] += i * w
+        n_aln[r] = m
+    return n_aln, alns
+
+
+def zero_draw_state(steps: int) -> np.ndarray:
+    """The state (limbs) whose draw number steps + 1 is 0."""
+    return _limbs(_back(((0 - _C48) * _A48_INV) & _M48, steps))
 
 
 def _back(x: int, steps: int) -> int:

@@ -1,4 +1,5 @@
-"""The least time the card could take for a search: bytes and operations.
+"""The least time the card could take for a kernel's work: bytes and
+operations.
 
 The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
 bytes/s and fp32 operations/s outside the tensor cores.  The kernels do
@@ -17,6 +18,16 @@ FP32_OPS_S = 67e12
 # (8 words x ~7 ops + ~15 addressing each; a chain step; expansions cost
 # ~4x more)
 OPS_SEARCH_STEP_MIN = 150
+# dependent integer and double operations of one drand48 draw
+# (csrc/drand48_body.cuh: the LCG's 64-bit multiply-add and mask, the
+# conversion, the double multiply and the compare or truncation)
+OPS_DRAW = 10
+# operations of one pairing step that pairs a reverse entry with the
+# opposite end's two forward slots (csrc/pairing_body.cuh): two 64-bit
+# hash_64 mixes (~40 32-bit operations each), the gates, the score word
+# and the key compares and updates; forward entries, empty slots and the
+# result are not counted, so the bound stays below the work
+OPS_PAIR_STEP = 150
 
 
 def bound(bytes_: float, ops: float) -> tuple[float, str]:
@@ -43,3 +54,14 @@ def search_bound(P, N: int, tab_bytes: int, n_aln, steps: int,
     n_rows = int(n_aln.clamp(0, 48).long().sum())
     return bound(search_bytes(P, N, tab_bytes, n_rows, outs),
                  steps * OPS_SEARCH_STEP_MIN)
+
+
+def pairing_bound(P: int, n_valid: int, n_rev: int, pen_len: int
+                  ) -> tuple[float, str]:
+    """The least time of the pairing kernel on P pairs with n_valid valid
+    sorted entries (position and word, 8 bytes each; the sweep stops at a
+    row's first invalid entry and reads none of the rest), n_rev of them
+    reverse: the SE state in and out (8 int32 an end each way), the changed
+    flags, the penalty table and g_log_n."""
+    bytes_ = 8 * n_valid + 2 * 64 * P + 4 * P + 4 * pen_len + 4 * 256
+    return bound(bytes_, n_rev * OPS_PAIR_STEP)

@@ -1,9 +1,13 @@
-"""The port's drand48 reservoir draw (plain version, and the kernel's walk
+"""The port's drand48 reservoir draw (plain version, and the kernel's tiles
 built for the host with g++) against fastquick_tpu's aln2seq_draw_scan
-and its HostDraw oracle: random hit-list batches and single reads
-engineered onto the double rounding boundaries of the acceptance test and
-of the SA-row offset.  Selected field words, rows and the stream state
-must be identical."""
+and its HostDraw oracle: random hit-list batches, batches of several
+tiles (mixed, every read a single row, and best classes of up to 48
+rows that end tiles early), states whose next draw is 0
+on a single-row read (the kernel's speculation breaks and resumes) and on
+a multi-row read, the empty batch, and single reads engineered onto the
+double rounding boundaries of the acceptance test and of the SA-row
+offset.  Selected field words, rows and the stream state must be
+identical."""
 
 import ctypes
 import shutil
@@ -22,6 +26,8 @@ from fastquick_tpu_torch.ops import drand48_device as td  # noqa: E402
 from fastquick_tpu_torch.testing.drand48_cases import (  # noqa: E402
     boundary_cases,
     random_batch,
+    single_batch,
+    zero_draw_state,
 )
 
 needs_gxx = pytest.mark.skipif(shutil.which("g++") is None,
@@ -123,3 +129,89 @@ def test_boundaries_match_jax_and_host_draw():
             assert int(want[1][0]) == int(alns[0, 0, 1]) + off
             crossed[kind] += off != exact
     assert crossed["accept"] > 0 and crossed["offset"] > 0, crossed
+
+
+def _all_three(n_aln, alns, state, what):
+    """JAX, plain and host build on one batch; JAX's result."""
+    want = _jax(n_aln, alns, state)
+    _assert_same(_plain(n_aln, alns, state), want, f"{what}: plain")
+    _assert_same(_host(n_aln, alns, state), want, f"{what}: host build")
+    return want
+
+
+@needs_gxx
+@pytest.mark.parametrize("seed", [7, 8])
+def test_batches_of_several_tiles(seed):
+    """2,600 reads: three tiles of the kernel, each with serial reads
+    between runs of single-row reads."""
+    rng = np.random.default_rng(seed)
+    n_aln, alns, _ = random_batch(rng, 2600)
+    _all_three(n_aln, alns, jd.seed_state(seed), "mixed tiles")
+
+
+@needs_gxx
+def test_single_row_batch():
+    """Every read one row of width >= 1: the walk visits no read, each
+    tile is one jump and every read draws in the parallel pass."""
+    rng = np.random.default_rng(9)
+    n_aln, alns = single_batch(rng, 2600)
+    want = _all_three(n_aln, alns, jd.seed_state(11), "single rows")
+    assert (want[0] != 0).all()
+
+
+@needs_gxx
+def test_long_best_classes():
+    """Best classes of 17 to 48 rows, enough rows that tiles end early at
+    the kernel's row budget (FQ_DRAND_ROWS)."""
+    rng = np.random.default_rng(13)
+    n_aln, alns = single_batch(rng, 400)
+    nb = rng.integers(17, 49, 400)
+    w = alns[:, 0, 2] - alns[:, 0, 1] + 1
+    for r in range(400):
+        if r % 3 == 0:
+            continue  # a single-row read between the long ones
+        for i in range(1, nb[r]):
+            alns[r, i] = alns[r, 0]
+            alns[r, i, 1:] += i * w[r]
+        n_aln[r] = nb[r]
+    assert int(n_aln.sum()) > 2 * 4096
+    _all_three(n_aln, alns, jd.seed_state(11), "long best classes")
+
+
+@needs_gxx
+@pytest.mark.parametrize("at", [0, 37, 1023, 1024, 2000])
+def test_zero_draw_on_single_row_read(at):
+    """The draw of read `at` (a single row) is 0: it takes one draw and
+    selects nothing, and every read after it draws from state 0 on.  At
+    the first read, inside a tile, at a tile's last and first read, and
+    in the second tile."""
+    rng = np.random.default_rng(10 + at)
+    n_aln, alns = single_batch(rng, 2600)
+    state = zero_draw_state(2 * at)
+    want = _all_three(n_aln, alns, state, f"zero draw at {at}")
+    assert want[0][at] == 0 and want[1][at] == 0
+    assert (np.delete(want[0], at) != 0).all()
+
+
+@needs_gxx
+def test_zero_draw_on_multi_row_read():
+    """Read 300's best class has three rows and its first draw is 0: it
+    declines that row and goes on drawing from state 0, in the walk."""
+    rng = np.random.default_rng(12)
+    n_aln, alns = single_batch(rng, 1200)
+    at = 300
+    n_aln[at] = 3
+    for i in (1, 2):
+        alns[at, i] = alns[at, 0]
+        alns[at, i, 1:] += 1000 * i
+    _all_three(n_aln, alns, zero_draw_state(2 * at), "zero draw, 3 rows")
+
+
+def test_empty_batch():
+    n_aln = np.zeros(0, np.int32)
+    alns = np.zeros((0, 48, 3), np.int32)
+    state = jd.seed_state(11)
+    got = _plain(n_aln, alns, state)
+    np.testing.assert_array_equal(got[2], state)
+    if shutil.which("g++"):
+        _assert_same(_host(n_aln, alns, state), got, "empty: host build")
