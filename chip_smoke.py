@@ -38,8 +38,10 @@ Phases (any failure raises and the script exits non-zero):
    state, timed; and the pairing kernel runs on 100,000 pairs at k_occ 32
    (qc_step_full's first pass; the kernels line's numbers) and on 64 pairs
    at k_occ2 512 (its second pass) of testing/pairing_cases.py, equal to
-   pairing_sweep_plain in every output field and cnt_chg; its launch
-   timed by CUDA events, and the wrapper with its sorts;
+   pairing_sweep_plain in every output field and cnt_chg; pairing_sweep
+   makes one launch, which orders, sweeps and finishes every pair: that
+   launch timed by CUDA events around it, and the wrapper with its
+   penalty table;
 3. small world: the port's ``index`` + ``align --device_qc`` on
    testing/synthworld.build_synth_pe_world, byte-identical on all 12
    product files to the port's ``align --engine host``, once with the
@@ -69,8 +71,10 @@ Phases (any failure raises and the script exits non-zero):
    Each run logs its first pass's fallback, its stages' wall times (the
    card synced at each boundary), reads a second, its counters and its
    launches, zeroed right before it, with its pairing, second_pass and
-   drand48 stages apart; its pairing kernel launches must equal the
-   sweeps it ran.  After each run, every drand48 launch and every pairing
+   drand48 stages apart, and the fill pass's pairing stage split into
+   its isize inference, two expansions and sweep by CUDA events around
+   them; its pairing kernel launches must equal the sweeps it ran.
+   After each run, every drand48 launch and every pairing
    sweep it made is held to the plain version on its own inputs (and
    timed again on them), and the resident run's first-pass search launch
    to the plain search on 4,096 evenly spaced reads of its chunk.
@@ -105,8 +109,10 @@ Phases (any failure raises and the script exits non-zero):
    redoing its own fallback reads with the native engine: every
    accumulator (n_reads aside), n_pcr_dup, row, _drand_state and the 13
    product files identical to phase 5's single-device runs (made here
-   when phase 5 did not run), every rank equal, and each rank's width,
-   search (chain 4) or scan and drand48 kernels launched.  Each rank logs
+   when phase 5 did not run), every rank equal, each rank's width,
+   search (chain 4) or scan and drand48 kernels launched, and each of its
+   pairing sweeps, one launch each, held to the plain version on its own
+   inputs after its run.  Each rank logs
    its world's load time, stage times (with "exchange": the collectives
    and the merge, waiting for the slowest rank included), whole wall
    time, launches and peak device memory.  Then DeviceLLK sharded over 2
@@ -661,21 +667,6 @@ def same_draw(got, want, what: str) -> None:
             raise AssertionError(f"{what} in {name}, at {bad}")
 
 
-def same_sweep(got, want, what: str) -> None:
-    """Raise unless two pairing sweeps agree in every output field of both
-    ends and in cnt_chg."""
-    import torch
-
-    for j in (0, 1):
-        for k, w in want[j].items():
-            if not torch.equal(got[j][k], w):
-                bad = (got[j][k] != w).nonzero()[:5].flatten().tolist()
-                raise AssertionError(f"{what}: end {j} {k}, pairs {bad}")
-    if int(got[2]) != int(want[2]):
-        raise AssertionError(f"{what}: cnt_chg {int(got[2])} != "
-                             f"{int(want[2])}")
-
-
 def _draw_check(dev, n_aln, alns, state, what: str,
                 zero_at: int | None = None) -> dict:
     """One batch through the drand48 kernel and its plain version (equal
@@ -746,12 +737,38 @@ def drand48_case(dev, rng, n: int) -> dict:
     return res
 
 
+def _pairing_work(occ0, occ1, a0, a1, ok) -> tuple:
+    """What pairing_sweep's kernel must do on these inputs, for its bound:
+    the valid entries, the reverse ones, the distinct packed words they
+    name, and the least compares that sort each pair's entries (log2 n!)."""
+    import math
+
+    import torch
+
+    n = n_valid = n_rev = n_words = 0
+    for occ, a in ((occ0, a0), (occ1, a1)):
+        P, K = occ["pos"].shape
+        c = occ["n_occ"].long().clamp(0, K) * ok.long()
+        valid = torch.arange(K, device=c.device)[None, :] < c[:, None]
+        row = torch.where(valid, occ["row"].long(), 0)
+        strand = (a[:, :, 0].long().gather(1, row) >> 18) & 1
+        used = torch.zeros(a.shape[:2], dtype=torch.long, device=c.device)
+        used.scatter_add_(1, row, valid.long())
+        n = n + c
+        n_valid += int(c.sum())
+        n_rev += int((valid & (strand == 1)).sum())
+        n_words += int((used > 0).sum())
+    n_cmp = float(torch.ceil(torch.lgamma(n.double() + 1) / math.log(2))
+                  .sum())
+    return n_valid, n_rev, n_words, n_cmp
+
+
 def pairing_case(dev, rng, P: int, K: int) -> dict:
     """The pairing kernel against pairing_sweep_plain on P pairs at
     occurrence cap K (testing/pairing_cases.py): every output field and
-    cnt_chg equal; the kernel's launch timed by CUDA events around the
-    wrapper's one launch, the wrapper whole (sorts and table included) and
-    the plain version by events too."""
+    cnt_chg equal; the kernel's one launch timed by CUDA events around it,
+    the wrapper whole (with its penalty table) and the plain version by
+    events too."""
     import torch
 
     from fastquick_tpu_torch.align.opts import G_LOG_N
@@ -759,9 +776,12 @@ def pairing_case(dev, rng, P: int, K: int) -> dict:
     from fastquick_tpu_torch.ops.pe_device import (
         pairing_sweep,
         pairing_sweep_plain,
-        sweep_inputs,
+        penalty_table,
     )
-    from fastquick_tpu_torch.testing.pairing_cases import random_pairs
+    from fastquick_tpu_torch.testing.pairing_cases import (
+        random_pairs,
+        same_sweep,
+    )
     from fastquick_tpu_torch.utils.bounds import pairing_bound
 
     occ0, occ1, a0, a1, se0, se1, ok, ii = random_pairs(rng, P, K)
@@ -774,7 +794,11 @@ def pairing_case(dev, rng, P: int, K: int) -> dict:
 
     args = (d(occ0), d(occ1), t(a0), t(a1), d(se0), d(se1), t(ok), t(ii),
             3, 500, torch.tensor(G_LOG_N, dtype=torch.long, device=dev))
+    build.reset_launch_counts()
     got = pairing_sweep(*args)
+    if build.launch_counts["pairing"] != 1:
+        raise AssertionError(f"pairing_sweep at P={P} K={K}: "
+                             f"{build.launch_counts['pairing']} launches")
     same_sweep(got, pairing_sweep_plain(*args),
                f"pairing kernel != plain at P={P} K={K}")
     lib = build.cuda_library()
@@ -797,20 +821,23 @@ def pairing_case(dev, rng, P: int, K: int) -> dict:
     runs = [a.elapsed_time(b) for a, b in ev[1:]]
     ms = sum(runs) / len(runs)
     wrapper_ms = cuda_ms(lambda: pairing_sweep(*args), 3)
+    table_ms = cuda_ms(lambda: penalty_table(args[7]), 3)
     plain_ms = cuda_ms(lambda: pairing_sweep_plain(*args), 1)
-    pos, ent, _, pen, *_ = sweep_inputs(*args[:8], args[10])
-    n_valid = int((ent != 0).sum())
-    n_rev = int((((ent >> 18) & 1) * (ent >> 27)).sum())
-    bms, by = pairing_bound(P, n_valid, n_rev, pen.numel())
-    out = dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+    n_valid, n_rev, n_words, n_cmp = _pairing_work(*args[:4], args[6])
+    pen_len = penalty_table(args[7])[0].numel()
+    bms, by = pairing_bound(P, n_valid, n_rev, n_words, n_cmp, pen_len)
+    out = dict(ms=ms, wrapper_ms=wrapper_ms, table_ms=table_ms,
+               plain_ms=plain_ms,
                max_abs_err=0, bound_ms=bms, bound_by=by, pairs=P, k_occ=K,
-               entries=n_valid, reverse=n_rev, cnt_chg=int(got[2]),
-               proper=int(got[0]["proper"].sum()))
-    log(f"pairing P={P} K={K}: kernel {ms:.3f} ms (runs "
-        f"{', '.join(f'{x:.3f}' for x in runs)}), with its sorts and table "
-        f"{wrapper_ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bms:.5f} ms "
-        f"({by}); {n_valid} entries, {n_rev} reverse, {out['proper']} "
-        f"proper pairs, cnt_chg {out['cnt_chg']}; every output equal")
+               entries=n_valid, reverse=n_rev, words=n_words, compares=n_cmp,
+               cnt_chg=int(got[2]), proper=int(got[0]["proper"].sum()))
+    log(f"pairing P={P} K={K}: kernel {ms:.4f} ms (runs "
+        f"{', '.join(f'{x:.4f}' for x in runs)}), pairing_sweep with its "
+        f"penalty table {wrapper_ms:.4f} ms (the table alone "
+        f"{table_ms:.4f} ms), plain {plain_ms:.1f} ms, bound "
+        f"{bms:.5f} ms ({by}); {n_valid} entries, {n_rev} reverse, "
+        f"{n_words} words, {n_cmp:.0f} compares, {out['proper']} proper "
+        f"pairs, cnt_chg {out['cnt_chg']}; one launch, every output equal")
     return out
 
 
@@ -1059,13 +1086,29 @@ def _recording(calls: dict):
     """Record what qc_step_full hands its drand48, resident-search and
     pairing wrappers and what they return: every draw in calls["draw"],
     the first search (its inputs cloned before the kernel edits widths in
-    place) in calls["search"], every pairing sweep in calls["pairing"]."""
+    place) in calls["search"], every pairing sweep in calls["pairing"].
+    The pairing stage's parts are timed by CUDA events around each call,
+    into calls["events"] as (part, k_occ, start, end): the isize
+    inference (its histogram and the estimate), each expansion and each
+    sweep."""
     import torch
 
     from fastquick_tpu_torch.ops import qc_full
 
     draw, search = qc_full.aln2seq_draw_scan, qc_full.resident_search
     sweep = qc_full.pairing_sweep
+    events = calls.setdefault("events", [])
+
+    def timed(part, fn, k_of):
+        def run(*args, **kw):
+            e = (torch.cuda.Event(enable_timing=True),
+                 torch.cuda.Event(enable_timing=True))
+            e[0].record()
+            out = fn(*args, **kw)
+            e[1].record()
+            events.append((part, k_of(args), *e))
+            return out
+        return run
 
     def record_draw(n_aln, alns, state0):
         args = (n_aln.clone(), alns.clone(),
@@ -1083,15 +1126,45 @@ def _recording(calls: dict):
             calls["search"].append((fm, P, args, out))
         return out
 
+    timed_sweep = timed("sweep", sweep, lambda a: a[0]["pos"].shape[1])
+
     def record_sweep(*args):
-        out = sweep(*args)
+        out = timed_sweep(*args)
         calls["pairing"].append((args, out))
         return out
 
+    def none(_):
+        return None
+
     with mock.patch.object(qc_full, "aln2seq_draw_scan", record_draw), \
             mock.patch.object(qc_full, "resident_search", record_search), \
-            mock.patch.object(qc_full, "pairing_sweep", record_sweep):
+            mock.patch.object(qc_full, "pairing_sweep", record_sweep), \
+            mock.patch.object(qc_full, "isize_hist_local", timed(
+                "isize", qc_full.isize_hist_local, none)), \
+            mock.patch.object(qc_full, "infer_isize_from_hist", timed(
+                "isize", qc_full.infer_isize_from_hist, none)), \
+            mock.patch.object(qc_full, "expand_occurrences", timed(
+                "expansion", qc_full.expand_occurrences, lambda a: a[5])):
         yield
+
+
+def _pairing_split(events: list, k_occ: int) -> dict:
+    """The fill pass's pairing stage by its parts' CUDA events (ms): the
+    isize inference, the expansions and the sweep at k_occ.  A pass's
+    events start at its first isize part; the fill pass is the last."""
+    import torch
+
+    torch.cuda.synchronize()
+    passes: list = []
+    for ev in events:
+        if ev[0] == "isize" and (not passes or passes[-1][-1][0] != "isize"):
+            passes.append([])
+        passes[-1].append(ev)
+    out = {"isize": 0.0, "expansion": 0.0, "sweep": 0.0}
+    for part, k, a, b in passes[-1] if passes else []:
+        if k in (None, k_occ):
+            out[part] += a.elapsed_time(b)
+    return out
 
 
 def _check_sweeps(sweeps: list, name: str) -> list:
@@ -1103,6 +1176,7 @@ def _check_sweeps(sweeps: list, name: str) -> list:
         pairing_sweep,
         pairing_sweep_plain,
     )
+    from fastquick_tpu_torch.testing.pairing_cases import same_sweep
 
     out = []
     for i, (args, got) in enumerate(sweeps):
@@ -1119,7 +1193,7 @@ def _check_sweeps(sweeps: list, name: str) -> list:
     log(f"program production, {name}: its {len(sweeps)} pairing sweeps "
         f"equal to plain in every output and cnt_chg ("
         + ", ".join(f"{c['pairs']} pairs at K {c['k_occ']}, cnt_chg "
-                    f"{c['cnt_chg']}, sweep with its sorts {c['ms']:.3f} ms, "
+                    f"{c['cnt_chg']}, pairing_sweep {c['ms']:.4f} ms, "
                     f"plain {c['plain_s']:.2f}s" for c in out) + ")")
     return out
 
@@ -1319,6 +1393,15 @@ def phase_program(work: Path, logf, seed: int, pairs: int,
             f"{times.get('second_pass', 0):.3f}s, drand48 "
             f"{times.get('drand48', 0):.3f}s; {launches['pairing']} pairing "
             f"launches, one a sweep")
+        k_occ = int(world["opt_args"].get("k_occ", 32))
+        split = _pairing_split(calls["events"], k_occ)
+        res[name]["pairing_split_ms"] = split
+        log(f"program production, {name}: the fill pass's pairing stage "
+            f"{1e3 * times.get('pairing', 0):.3f} ms (host clock) by its "
+            f"parts' CUDA events: isize inference {split['isize']:.4f} ms, "
+            f"the two expansions at k_occ {k_occ} "
+            f"{split['expansion']:.4f} ms, the sweep {split['sweep']:.4f} "
+            f"ms")
         res[name]["draw_checks"] = _check_draws(calls["draw"], name)
         res[name]["sweep_checks"] = _check_sweeps(calls["pairing"], name)
         if calls["search"]:
@@ -1741,7 +1824,8 @@ def phase_mesh(work: Path, logf, seed: int, pairs: int,
                  opts=dict(pool=512, chain=1, step_cap=768))]
     spec = dict(tmp=str(prod_w["tmp"]), idx_prefix=prod_w["idx_prefix"],
                 fq1=prod_w["fq1"], fq2=prod_w["fq2"], device=dev, L=160,
-                bitmaps=True, pileup_cap=64, engine="native", runs=runs)
+                bitmaps=True, pileup_cap=64, engine="native",
+                check_sweeps=True, runs=runs)
     single = {}
     if program is not None:
         for run in runs:
@@ -1763,7 +1847,7 @@ def phase_mesh(work: Path, logf, seed: int, pairs: int,
         res["production"]["ranks"].append(dict(
             rank=r["rank"], load_s=r["load_s"], peak_bytes=r["peak_bytes"],
             runs={k: {f: v[f] for f in ("wall_s", "times", "launches",
-                                        "fallback_first")}
+                                        "fallback_first", "sweeps_held")}
                   for k, v in r["runs"].items()}))
     for run in runs:
         name = run["name"]
@@ -1780,8 +1864,17 @@ def phase_mesh(work: Path, logf, seed: int, pairs: int,
             if int(x["stats"]["n_fallback"]):
                 raise AssertionError(f"mesh production {name}: fallback "
                                      "reads left after the fill pass")
+            held = x["sweeps_held"]
+            if not held or (dev == "cuda"
+                            and len(held) != x["launches"]["pairing"]):
+                raise AssertionError(f"mesh production {name}, rank "
+                                     f"{r['rank']}: {len(held)} sweeps held "
+                                     f"to plain, {x['launches']['pairing']} "
+                                     "pairing launches")
             log(f"mesh production, {name} kernel, {_rank_line(r, name)}; "
-                f"first pass {x['fallback_first']} fallback reads")
+                f"first pass {x['fallback_first']} fallback reads; its "
+                f"{len(held)} pairing sweeps ((pairs, k_occ, cnt_chg): "
+                f"{held}) equal to plain in every output and cnt_chg")
         qp.same_run((a["stats"], a["rows"]), (b["stats"], b["rows"]),
                     f"mesh production {name}: rank 1 against rank 0")
         # n_reads counts padding rows; the production batch has none, but

@@ -291,16 +291,71 @@ extern "C" int fq_drand48_host(const int32_t* n_aln, const int32_t* alns,
   return 0;
 }
 
-// The pairing kernel's threads (pairing.cu's fq_pairing_launch
-// arguments), one pair after another.
-extern "C" int fq_pairing_host(int P, int NK, const int32_t* pos_s,
-                               const int32_t* ent_s, const int32_t* se,
-                               const int32_t* pen, const int32_t* g_log_n,
-                               int has_high, long long high_b, int max_isize,
-                               int s_mm, int32_t* out, int32_t* chg) {
-  const FqPairParams prm = {has_high, (int64_t)high_b, max_isize, s_mm};
-  for (int p = 0; p < P; ++p)
-    chg[p] = fq_pair_sweep(p, P, NK, pos_s, ent_s, se, pen, g_log_n, prm,
-                           out);
+// The pairing kernels (pairing.cu's fq_pairing_launch arguments), their
+// steps in order.  2 K <= 64: the warp kernel, a tile of 32 pairs at a
+// time: each group's keys, its network over the 64 slots stage by stage
+// (every slot takes fq_pair_cx of itself and of its partner s ^ j as the
+// stage before left them: a lane's shuffle partner or its other key) and
+// the sorted keys into the scratch, then each pair's sweep from there.
+// Else the block kernel: each pair's network over its own keys alike, its
+// sweep.  cnt is zeroed by the caller.
+extern "C" int fq_pairing_host(FQ_PAIR_IN_ARGS, int32_t* out,
+                               uint8_t* proper, int32_t* cnt,
+                               int64_t* scratch) {
+  const FqPairIn in = fq_pair_in(FQ_PAIR_IN_NAMES);
+  const FqPairOut o = {out, proper, cnt};
+  std::vector<uint64_t> key, prev;
+  auto network = [&](int m, int seg) {  // m slots in segments of seg
+    for (int k = 2; k <= seg; k <<= 1) {
+      for (int j = k >> 1; j > 0; j >>= 1) {
+        prev = key;
+        for (int s = 0; s < m; ++s)
+          key[s] = fq_pair_cx(prev[s], prev[s ^ j], s & (seg - 1), j, k);
+      }
+    }
+  };
+  if (2 * K > FQ_PAIR_WARP_NK) {
+    for (int p = 0; p < P; ++p) {
+      int c0, c1;
+      fq_pair_counts(in, p, c0, c1);
+      const int n = c0 + c1, m = fq_pair_span(n);
+      key.resize(m);
+      for (int i = 0; i < m; ++i) key[i] = fq_pair_key(in, p, i, c0, n);
+      network(m, m);
+      *cnt += fq_pair_sweep(in, p, key.data(), 1, n, o);
+    }
+    return 0;
+  }
+  const int W = 32, NK = FQ_PAIR_WARP_NK;
+  uint64_t* sk = (uint64_t*)scratch;
+  int c0[W], nn[W], span[W];
+  int64_t at[NK];
+  key.resize(NK);
+  for (int base = 0; base < P; base += W) {
+    for (int q = 0; q < W; ++q) {
+      int c1 = 0;
+      c0[q] = 0;
+      if (base + q < P) fq_pair_counts(in, base + q, c0[q], c1);
+      nn[q] = c0[q] + c1;
+      span[q] = fq_pair_span(nn[q]);
+    }
+    for (int q = 0; q < W;) {
+      int g = 1, M = span[q];
+      while (q + g < W && fq_pair_group_takes(g, M, span[q + g])) ++g;
+      for (int s = 0; s < NK; ++s) {
+        const int pq = q + s / M, i = s % M;
+        const bool v = s < g * M && i < nn[pq & 31];
+        key[s] = v ? fq_pair_key(in, base + pq, i, c0[pq], nn[pq])
+                   : FQ_PAIR_PAD;
+        at[s] = v ? (int64_t)i * P + base + pq : -1;
+      }
+      network(NK, M);
+      for (int s = 0; s < NK; ++s)
+        if (at[s] >= 0) sk[at[s]] = key[s];
+      q += g;
+    }
+    for (int q = 0; q < W && base + q < P; ++q)
+      *cnt += fq_pair_sweep(in, base + q, sk + base + q, P, nn[q], o);
+  }
   return 0;
 }

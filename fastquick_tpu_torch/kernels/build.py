@@ -46,6 +46,11 @@ _host_lib = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+# fq_pairing_launch's and fq_pairing_host's inputs (csrc/pairing_body.cuh
+# FQ_PAIR_IN_ARGS); the outputs, the scratch (and the launch's stream)
+# follow
+_PAIRING_ARGS = ([_I, _I] + [_P] * 7 + [_L, _P, _L, _P, _P, _P, _P]
+                 + [_I, _L, _I, _I])
 
 
 def reset_launch_counts() -> None:
@@ -143,8 +148,7 @@ def cuda_library() -> ctypes.CDLL:
             lib.fq_drand48_launch.restype = _I
             lib.fq_drand48_launch.argtypes = [_P, _P, _I] + [_P] * 5
             lib.fq_pairing_launch.restype = _I
-            lib.fq_pairing_launch.argtypes = ([_I, _I] + [_P] * 5
-                                              + [_I, _L, _I, _I] + [_P] * 3)
+            lib.fq_pairing_launch.argtypes = _PAIRING_ARGS + [_P] * 5
             _cuda_lib = lib
         return _cuda_lib
 
@@ -172,8 +176,7 @@ def host_library() -> ctypes.CDLL:
             lib.fq_drand48_host.restype = _I
             lib.fq_drand48_host.argtypes = [_P, _P, _I] + [_P] * 4
             lib.fq_pairing_host.restype = _I
-            lib.fq_pairing_host.argtypes = ([_I, _I] + [_P] * 5
-                                            + [_I, _L, _I, _I] + [_P] * 2)
+            lib.fq_pairing_host.argtypes = _PAIRING_ARGS + [_P] * 4
             _host_lib = lib
         return _host_lib
 

@@ -9,12 +9,14 @@ reference package's results bit for bit:
   (including the C quirk of the variance accumulator starting at -1.0,
   bwape.c:85-88);
 - pairing (bwape.c:119-215) over each pair's position-sorted occurrence
-  list: on the card one CUDA kernel (csrc/pairing.cu, a thread a pair,
-  the u64 pair-score key a uint64_t), on the CPU the plain version, a
-  lockstep loop over the entries with the key (score<<32 | hash_64)
-  carried as two 32-bit words -- both with the reference's OR-collision
-  of the hash's high word into the score word and the `s>>32 <
-  (o_score<<32 & U64MAX)` comparison, which reduces to `o_lo != 0`;
+  list: on the card one launch of a CUDA kernel (csrc/pairing.cu: each
+  pair's entries ordered by a bitonic network, then swept by one thread,
+  the u64 pair-score key a uint64_t), on the CPU the plain version, two
+  stable argsorts and a lockstep loop over the entries with the key
+  (score<<32 | hash_64) carried as two 32-bit words -- both with the
+  reference's OR-collision of the hash's high word into the score word
+  and the `s>>32 < (o_score<<32 & U64MAX)` comparison, which reduces to
+  `o_lo != 0`;
 - ProcessPairStatus (src/StatCollector.cpp:623-948) as accumulators.
 
 Integer types: a "u32" below is an int64 tensor holding a value in [0,
@@ -26,6 +28,7 @@ inside and come out in the reference's dtypes (int32 values, bool flags).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -289,72 +292,110 @@ def pairing_sweep(occ0, occ1, alns0, alns1, se0, se1, pair_ok,
                   ii, s_mm: int, max_isize: int, g_log_n):
     """pairing (bwape.c:119-215) over P pairs.
 
-    occj: expand_occurrences dicts for end j; alnsj: packed rows
-    (P, A_MAX, 3); sej: dict of SE state per end (pos, strand, mapq,
-    seq_q, n_mm, n_gapo, n_gape, len); pair_ok: (P,) pairs that enter
-    pairing at all.  Returns per-end updated state (with the chosen-pair
-    flag "proper", the SAM_FPP analog) + cnt_chg.
+    occj: expand_occurrences dicts for end j (the valid entries are the
+    prefix t < n_occ); alnsj: packed rows (P, A_MAX, 3); sej: dict of SE
+    state per end (pos, strand, mapq, seq_q, n_mm, n_gapo, n_gape, len);
+    pair_ok: (P,) pairs that enter pairing at all.  Returns per-end updated
+    state (with the chosen-pair flag "proper", the SAM_FPP analog) +
+    cnt_chg.
 
-    CUDA tensors launch the pairing kernel (csrc/pairing.cu, one thread a
-    pair) on the entries sorted here; CPU tensors run
+    CUDA tensors launch the pairing kernel (csrc/pairing.cu) once: it
+    orders each pair's entries, sweeps them and writes the result; only
+    the penalty table is built here.  CPU tensors run
     pairing_sweep_plain."""
     if occ0["pos"].device.type == "cpu":
         return pairing_sweep_plain(occ0, occ1, alns0, alns1, se0, se1,
                                    pair_ok, ii, s_mm, max_isize, g_log_n)
     dev = occ0["pos"].device
-    args = sweep_inputs(occ0, occ1, alns0, alns1, se0, se1, pair_ok, ii,
-                        g_log_n)
-    build.require_cuda(*args[:5])
-    P = args[0].shape[0]
-    out = torch.empty((2, 8, P), dtype=torch.int32, device=dev)
-    chg = torch.zeros(P, dtype=torch.int32, device=dev)
-    p = build.ptr
-    pos, ent, se, pen, g, has_high, high_b = args
+    call = sweep_call(occ0, occ1, alns0, alns1, se0, se1, pair_ok, ii, s_mm,
+                      max_isize, g_log_n)
+    build.require_cuda(*call.keep)
     rc = build.cuda_library().fq_pairing_launch(
-        P, pos.shape[1], p(pos), p(ent), p(se), p(pen), p(g), has_high,
-        high_b, max_isize, s_mm, p(out), p(chg),
+        *call.args,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     build.check(rc, "pairing")
     build.launch_counts["pairing"] += 1
-    return sweep_outputs(se0, se1, out, chg)
+    return sweep_outputs(se0, se1, *call.outputs)
 
 
-def sweep_inputs(occ0, occ1, alns0, alns1, se0, se1, pair_ok, ii, g_log_n):
-    """The pairing kernel's inputs, int32 and contiguous: the sorted
-    entries' positions and words (P, 2K) (csrc/pairing_body.cuh), the SE
-    state (2, 8, P) in SE_FIELDS order, the penalty table, g_log_n; then
-    has_high (0/1) and high_b."""
-    i32 = torch.int32
-    dev = occ0["pos"].device
-    pos, row, end, valid = _merged_entries(occ0, occ1, pair_ok)
-    meta = _row_meta(alns0[:, :, 0].long(), alns1[:, :, 0].long(), end,
-                     row) & 0x3FFFFFF
-    ent = torch.where(valid, meta | (end << 26) | (1 << 27), 0).to(
-        i32).contiguous()
-    se = torch.stack([torch.stack([s[f].to(i32) for f in SE_FIELDS])
-                      for s in (se0, se1)]).contiguous()
-    has_high = bool(ii[4] > 0.0)
-    high_b = int(ii[5].long())
-    # the penalty of every insert the window admits (max_len <= l <=
-    # high_b), by the plain version's own operations
+class SweepCall(NamedTuple):
+    """The pairing kernel's C arguments (before the stream), the tensors
+    they point at (alive until the call returns) and its outputs: out
+    (2, 7, P) int32, proper (2, P) bool, cnt (1,) int32."""
+    args: list
+    keep: list
+    outputs: tuple
+
+
+def penalty_table(ii):
+    """The penalty of every insert the window admits, pen[l] for l in [0,
+    high_b], int32, by the plain version's own operations (a (1,) dummy
+    without the high bound), and has_high, high_b: one read of ii[4:6]
+    from its device (int() truncates high_b as .long() does)."""
+    hi, hb = ii[4:6].tolist()
+    has_high = hi > 0.0
+    high_b = int(hb) if has_high else 0
+    dev = ii.device
     pen = (_penalty(torch.arange(max(high_b, 0) + 1, device=dev), ii[1],
-                    ii[2]).to(i32) if has_high
-           else torch.zeros(1, dtype=i32, device=dev))
-    return (pos.to(i32).contiguous(), ent, se, pen,
-            g_log_n.to(i32).contiguous(), int(has_high), high_b)
+                    ii[2]).to(torch.int32) if has_high
+           else torch.zeros(1, dtype=torch.int32, device=dev))
+    return pen, has_high, high_b
 
 
-def sweep_outputs(se0, se1, out, chg):
-    """pairing_sweep's result from the kernel's (2, 8, P) out and (P,)
-    chg: each end's dict with its fields replaced, and cnt_chg."""
+def sweep_call(occ0, occ1, alns0, alns1, se0, se1, pair_ok, ii,
+               s_mm: int, max_isize: int, g_log_n) -> SweepCall:
+    """pairing_sweep's arguments as the pairing kernel's C interface takes
+    them (csrc/pairing_body.cuh): the unsorted occurrence planes, the
+    packed words and the SE fields where the caller keeps them (int32 or
+    int64, any stride: a copy only of what is neither), the penalty table,
+    and the outputs and the sorted keys' scratch, allocated here."""
+    i32 = torch.int32
+    P, K = occ0["pos"].shape
+    dev = occ0["pos"].device
+
+    def c32(t):
+        return t.to(i32).contiguous()
+
+    def words(a):  # row r of pair p at a[p * stride(0) + 3 r]
+        a = a.to(i32)
+        return a if a.stride()[1:] == (3, 1) else a.contiguous()
+
+    occ = [c32(o[f]) for o in (occ0, occ1) for f in ("pos", "row", "n_occ")]
+    a0, a1 = words(alns0), words(alns1)
+    ok = pair_ok.to(torch.bool).contiguous()
+    se = [s[f] if s[f].dtype in (i32, torch.int64) else s[f].to(i32)
+          for s in (se0, se1) for f in SE_FIELDS]
+    desc = (ctypes.c_longlong * 48)(
+        *(t.data_ptr() for t in se), *(t.stride(0) for t in se),
+        *(int(t.dtype == torch.int64) for t in se))
+    pen, has_high, high_b = penalty_table(ii)
+    g = c32(g_log_n)
+    out = torch.empty((2, 7, P), dtype=i32, device=dev)
+    proper = torch.empty((2, P), dtype=torch.bool, device=dev)
+    cnt = torch.zeros(1, dtype=i32, device=dev)
+    # the sorted keys of the warp kernel (2 K <= 64), [entry][pair]
+    scratch = torch.empty((2 * K, P) if 2 * K <= 64 else (0,),
+                          dtype=torch.int64, device=dev)
+    p = build.ptr
+    args = [P, K, *(p(t) for t in occ), p(a0), a0.stride(0), p(a1),
+            a1.stride(0), p(ok), ctypes.cast(desc, ctypes.c_void_p), p(pen),
+            p(g), int(has_high), high_b, max_isize, s_mm, p(out), p(proper),
+            p(cnt), p(scratch)]
+    # (the cast keeps desc alive with the argument)
+    keep = [*occ, a0, a1, ok, *se, pen, g, out, proper, cnt, scratch]
+    return SweepCall(args, keep, (out, proper, cnt))
+
+
+def sweep_outputs(se0, se1, out, proper, cnt):
+    """pairing_sweep's result from the kernel's outputs: each end's dict
+    with its fields replaced, and cnt_chg."""
     res = []
-    for j, s in enumerate((se0, se1)):
+    for s, fields, pr in zip((se0, se1), out.unbind(0), proper.unbind(0)):
         o = dict(s)
-        for i, f in enumerate(SE_FIELDS[:7]):
-            o[f] = out[j, i]
-        o["proper"] = out[j, 7] != 0
+        o.update(zip(SE_FIELDS[:7], fields.unbind(0)))
+        o["proper"] = pr
         res.append(o)
-    return res[0], res[1], chg.sum().to(torch.int32)
+    return res[0], res[1], cnt[0]
 
 
 def pairing_sweep_plain(occ0, occ1, alns0, alns1, se0, se1, pair_ok,

@@ -32,6 +32,7 @@ rows; rank 0 writes the files):
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import glob
 import time
@@ -395,12 +396,15 @@ def mesh_job(mesh, spec: dict) -> dict:
     idx_prefix, fq1, fq2), device, L, bitmaps, pileup_cap, out_dir (rank
     0 writes each run's product files there, prefixed by its name),
     engine ("native": the fill's exact redo is the native engine's, else
-    default_engine's) and runs, a list of dicts: name, kernel, opts (opt_args
-    overrides), fill (run_with_fill, else mesh_stats).  Returns this
-    rank's shard index, its world's load time, its peak device memory and
-    each run's stats and rows (numpy), stage times, wall time, launches,
-    first-pass fallback and files."""
+    default_engine's), check_sweeps (hold each pairing sweep of a run to
+    the plain version on its inputs, after the run) and runs, a list of
+    dicts: name, kernel, opts (opt_args overrides), fill (run_with_fill,
+    else mesh_stats).  Returns this rank's shard index, its world's load
+    time, its peak device memory and each run's stats and rows (numpy),
+    stage times, wall time, launches, first-pass fallback, files and the
+    sweeps held ((pairs, k_occ, cnt_chg) each)."""
     from .kernels import build
+    from .testing.pairing_cases import check_sweeps, recorded_sweeps
 
     rank = 0 if mesh is None else mesh.shard_index()
     t0 = time.perf_counter()
@@ -424,18 +428,24 @@ def mesh_job(mesh, spec: dict) -> dict:
         build.reset_launch_counts()
         times: dict = {}
         fb1 = None
+        sweeps: list = []
+        record = recorded_sweeps(sweeps) if spec.get("check_sweeps") \
+            else contextlib.nullcontext()
         t0 = time.perf_counter()
-        if run.get("fill"):
-            stats, rows, fb1 = run_with_fill(
-                world, engine, spec.get("pileup_cap", 64), run["kernel"],
-                times, mesh=mesh)
-        else:
-            stats, rows = mesh_stats(world, mesh, spec.get("pileup_cap", 64),
-                                     run["kernel"], times=times)
+        with record:
+            if run.get("fill"):
+                stats, rows, fb1 = run_with_fill(
+                    world, engine, spec.get("pileup_cap", 64), run["kernel"],
+                    times, mesh=mesh)
+            else:
+                stats, rows = mesh_stats(world, mesh,
+                                         spec.get("pileup_cap", 64),
+                                         run["kernel"], times=times)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
         launches = dict(build.launch_counts)
+        held = check_sweeps(sweeps, f"rank {rank}, run {run['name']}")
         files = []
         if rank == 0 and spec.get("out_dir"):
             files = write_product(f"{spec['out_dir']}/{run['name']}", stats,
@@ -443,7 +453,7 @@ def mesh_job(mesh, spec: dict) -> dict:
         runs[run["name"]] = dict(
             stats={k: _host(v) for k, v in stats.items()}, rows=rows,
             times=times, wall_s=wall, launches=launches, fallback_first=fb1,
-            files=files)
+            files=files, sweeps_held=held)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
         else None
     return dict(rank=rank, load_s=load_s, peak_bytes=peak, runs=runs,

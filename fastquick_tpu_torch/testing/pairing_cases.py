@@ -9,9 +9,16 @@ pair's own locus and the rest near it or anywhere on a 32 Mbp text, so a
 pair has one or several candidate pairings inside the insert-size window
 and some have none; the SE state is row 0's first occurrence with a mapQ
 of 0, 23, 37 or 60, and a few pairs are not entered (pair_ok false).
+
+``same_sweep`` holds two sweeps' results equal, and ``recorded_sweeps`` /
+``check_sweeps`` hold every sweep a one-program run made (in this process:
+a mesh rank too) to the plain version on its own inputs.
 """
 
 from __future__ import annotations
+
+import contextlib
+from unittest import mock
 
 import numpy as np
 
@@ -78,3 +85,48 @@ def random_pairs(rng: np.random.Generator, P: int, K: int):
     pair_ok = rng.random(P) < 0.95
     ii = np.array([1.0, 300.0, 40.0, 150.0, 500.0, 700.0, 1e-5], np.float32)
     return occ0, occ1, alns0, alns1, se0, se1, pair_ok, ii
+
+
+def same_sweep(got, want, what: str) -> None:
+    """Raise unless two pairing sweeps agree in every output field of both
+    ends and in cnt_chg."""
+    import torch
+
+    for j in (0, 1):
+        for k, w in want[j].items():
+            if not torch.equal(got[j][k], w):
+                bad = (got[j][k] != w).nonzero()[:5].flatten().tolist()
+                raise AssertionError(f"{what}: end {j} {k}, pairs {bad}")
+    if int(got[2]) != int(want[2]):
+        raise AssertionError(f"{what}: cnt_chg {int(got[2])} != "
+                             f"{int(want[2])}")
+
+
+@contextlib.contextmanager
+def recorded_sweeps(calls: list):
+    """Record each pairing sweep qc_step_full runs inside the block, its
+    arguments and result, into calls."""
+    from ..ops import qc_full
+
+    sweep = qc_full.pairing_sweep
+
+    def record(*args):
+        out = sweep(*args)
+        calls.append((args, out))
+        return out
+
+    with mock.patch.object(qc_full, "pairing_sweep", record):
+        yield
+
+
+def check_sweeps(calls: list, what: str) -> list:
+    """Each recorded sweep against pairing_sweep_plain on its own inputs
+    (raises unless equal); returns (pairs, k_occ, cnt_chg) of each."""
+    from ..ops.pe_device import pairing_sweep_plain
+
+    out = []
+    for i, (args, got) in enumerate(calls):
+        same_sweep(got, pairing_sweep_plain(*args),
+                   f"{what}, pairing sweep {i} != plain")
+        out.append((*args[0]["pos"].shape, int(got[2])))
+    return out

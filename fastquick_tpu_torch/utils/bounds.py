@@ -28,7 +28,9 @@ OPS_DRAW = 10
 # and the key compares and updates; forward entries, empty slots and the
 # result are not counted, so the bound stays below the work
 OPS_PAIR_STEP = 150
-
+# operations of one compare of the entries' sort: a 64-bit compare and
+# select on 32-bit units
+OPS_PAIR_CMP = 3
 
 def bound(bytes_: float, ops: float) -> tuple[float, str]:
     """(ms, "bytes" | "operations"): the larger of bytes over the HBM rate
@@ -56,12 +58,15 @@ def search_bound(P, N: int, tab_bytes: int, n_aln, steps: int,
                  steps * OPS_SEARCH_STEP_MIN)
 
 
-def pairing_bound(P: int, n_valid: int, n_rev: int, pen_len: int
-                  ) -> tuple[float, str]:
-    """The least time of the pairing kernel on P pairs with n_valid valid
-    sorted entries (position and word, 8 bytes each; the sweep stops at a
-    row's first invalid entry and reads none of the rest), n_rev of them
-    reverse: the SE state in and out (8 int32 an end each way), the changed
-    flags, the penalty table and g_log_n."""
-    bytes_ = 8 * n_valid + 2 * 64 * P + 4 * P + 4 * pen_len + 4 * 256
-    return bound(bytes_, n_rev * OPS_PAIR_STEP)
+def pairing_bound(P: int, n_valid: int, n_rev: int, n_words: int,
+                  n_cmp: float, pen_len: int) -> tuple[float, str]:
+    """The least time of pairing_sweep's kernel on P pairs: each pair's two
+    occurrence counts and pair_ok, its n_valid valid entries' position and
+    row (8 bytes each; the rest of the (P, K) planes is not read), the
+    n_words packed words they name, the SE state in (16 int32 a pair) and
+    out (14 int32 and 2 flags), cnt, the penalty table and g_log_n; and
+    the operations of n_rev reverse entries' pairing steps and of n_cmp
+    compares, the least that sort each pair's entries (log2 n! a pair)."""
+    bytes_ = (9 * P + 8 * n_valid + 4 * n_words + 64 * P + 58 * P + 4
+              + 4 * pen_len + 4 * 256)
+    return bound(bytes_, n_rev * OPS_PAIR_STEP + n_cmp * OPS_PAIR_CMP)

@@ -1,16 +1,18 @@
-"""The pairing kernel's body (csrc/pairing_body.cuh, built for the host
-with g++ as fq_pairing_host and fed by ops/pe_device.sweep_inputs) against
-the port's plain sweep (pairing_sweep_plain) and fastquick_tpu's
-pairing_sweep: the worlds of tests/test_pe_device.py with the insert-size
-window's high bound set and not, a penalty that is inf or nan (INT_MIN
-added to the score word), pairs built so that two candidates share a
-hash (the key's tie and reset paths), and the sweeps of the one-program
-step on the occurrence-overflow world of tests/test_pe_occ_overflow.py,
-whose second pass runs at k_occ2 = 512 (2 x 512 entries a pair).  Every
-output field and cnt_chg identical.  Also: the sorted planes hold every
-valid entry before any invalid one, as the kernel's early stop needs."""
+"""The pairing kernels' steps (csrc/pairing_body.cuh and the networks of
+csrc/pairing.cu, built for the host with g++ as fq_pairing_host and called
+with the arguments ops/pe_device.sweep_call gives the launch: the unsorted
+occurrence planes) against the port's plain sweep (pairing_sweep_plain,
+two stable argsorts and a loop) and fastquick_tpu's pairing_sweep: the
+worlds of tests/test_pe_device.py with the insert-size window's high
+bound set and not, a penalty that is inf or nan (INT_MIN added to the
+score word), pairs built so that two candidates share a hash (the key's
+tie and reset paths), the sweeps of the one-program step on the
+occurrence-overflow world of tests/test_pe_occ_overflow.py, whose second
+pass runs at k_occ2 = 512 (2 x 512 entries a pair: the block kernel), and
+entries on the edges of the sort key.  Every output field and cnt_chg
+identical.  Also: the plain version's sorted planes hold every valid
+entry before any invalid one."""
 
-import ctypes
 import functools
 import shutil
 from unittest import mock
@@ -37,24 +39,14 @@ pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
                                 reason="needs g++")
 
 
-def _host(occ0, occ1, a0, a1, se0, se1, pair_ok, ii, s_mm, max_isize,
-          g_log_n):
-    """pairing_sweep with the kernel's body built for the host."""
+def _host(*args):
+    """pairing_sweep with the kernel's body built for the host, on the
+    arguments sweep_call hands the kernel (the unsorted planes)."""
     from fastquick_tpu_torch.kernels.build import host_library
 
-    pos, ent, se, pen, g, has_high, high_b = tpe.sweep_inputs(
-        occ0, occ1, a0, a1, se0, se1, pair_ok, ii, g_log_n)
-    P = pos.shape[0]
-    out = torch.empty((2, 8, P), dtype=torch.int32)
-    chg = torch.zeros(P, dtype=torch.int32)
-
-    def p(t):
-        return ctypes.c_void_p(t.data_ptr())
-
-    assert host_library().fq_pairing_host(
-        P, pos.shape[1], p(pos), p(ent), p(se), p(pen), p(g), has_high,
-        high_b, max_isize, s_mm, p(out), p(chg)) == 0
-    return tpe.sweep_outputs(se0, se1, out, chg)
+    call = tpe.sweep_call(*args)
+    assert host_library().fq_pairing_host(*call.args) == 0
+    return tpe.sweep_outputs(args[4], args[5], *call.outputs)
 
 
 # compiled once a shape (s_mm and max_isize static), as qc_full runs it
@@ -235,13 +227,113 @@ def test_occ_overflow_world_sweeps(occ_world):  # noqa: F811
         assert bool(out0["proper"].any())
 
 
+def _word(rng, shape):
+    """Random packed hit-row words: mm, gap opens and extensions, strand,
+    score."""
+    strand = rng.integers(0, 2, shape)
+    score = rng.integers(0, 6, shape)
+    return (rng.integers(0, 4, shape) | rng.integers(0, 2, shape) << 6
+            | rng.integers(0, 3, shape) << 12 | strand << 18
+            | score << 19).astype(np.int32)
+
+
+def _crafted(rng, pos, row, n_occ, ok=None):
+    """pairing_sweep's arguments from each end's (P, K) positions and rows
+    and (P,) occurrence counts (valid: t < n_occ); each end's six hit rows
+    get random words, its SE state its first entry's position and row
+    strand (a random locus when it has none), mapQ 0, 23, 37 or 60."""
+    P, K = pos[0].shape
+    t = np.arange(K)[None, :]
+    occ, alns, se = [], [], []
+    for j in (0, 1):
+        valid = t < n_occ[j][:, None]
+        occ.append({"pos": _t(np.where(valid, pos[j], 0).astype(np.int32)),
+                    "row": _t(np.where(valid, row[j], 0).astype(np.int32)),
+                    "valid": _t(valid),
+                    "n_occ": _t(n_occ[j].astype(np.int32))})
+        a = np.zeros((P, 48, 3), np.int32)
+        a[:, :6, 0] = _word(rng, (P, 6))
+        alns.append(_t(a))
+        meta = a[np.arange(P), row[j][:, 0], 0]
+        mapq = rng.choice([0, 23, 37, 60], P).astype(np.int32)
+        se.append({k: _t(np.asarray(v, np.int32)) for k, v in dict(
+            pos=np.where(n_occ[j] > 0, pos[j][:, 0],
+                         rng.integers(0, 1 << 20, P)),
+            strand=(meta >> 18) & 1, mapq=mapq, seq_q=mapq,
+            n_mm=meta & 63, n_gapo=(meta >> 6) & 63,
+            n_gape=(meta >> 12) & 63,
+            len=rng.choice([100, 150], P)).items()})
+    ok = np.ones(P, bool) if ok is None else ok
+    ii = _t(np.array([1.0, 300.0, 40.0, 150.0, 500.0, 700.0, 1e-5],
+                     np.float32))
+    return [*occ, *alns, *se, _t(ok), ii, 3, 500, G_T]
+
+
+def _case(name, rng):
+    """Pairs whose entries take the order's edges (see
+    test_crafted_entries)."""
+    P, K = {"all_slots": (64, 32), "full_k512": (3, 512)}.get(name, (200, 8))
+    locus = rng.integers(1000, 1 << 24, P)[:, None]
+
+    def near(width):
+        return locus + rng.integers(-width, width, (P, K))
+
+    rows = [np.sort(rng.integers(0, 6, (P, K)), 1) for _ in (0, 1)]
+    n_occ = [rng.integers(1, K + 1, P) for _ in (0, 1)]
+    ok = None
+    if name == "equal_positions":  # three positions for every entry
+        pos = [locus + rng.choice([0, 150, 260], (P, K)) for _ in (0, 1)]
+    elif name == "max_position":  # up to and at 2^31 - 1
+        pos = [np.minimum(2 ** 31 - 1 - rng.integers(0, 900, (P, K))
+                          * (rng.random((P, K)) < 0.7), 2 ** 31 - 1)
+               for _ in (0, 1)]
+    elif name == "negative_positions":
+        pos = [rng.integers(-1500, 1500, (P, K)) for _ in (0, 1)]
+    elif name == "empty_and_not_ok":
+        pos = [near(500), near(500)]
+        for j in (0, 1):
+            n_occ[j][rng.random(P) < 0.35] = 0
+        ok = rng.random(P) < 0.75
+    elif name in ("all_slots", "full_k512"):  # every slot valid
+        pos = [near(600), near(600)]
+        n_occ = [np.full(P, K), np.full(P, K)]
+    else:  # reverse_key_order: every key below the one before it
+        hi = locus + 500 + np.sort(rng.integers(0, 300, (P, K)), 1)[:, ::-1]
+        lo = locus + np.sort(rng.integers(0, 300, (P, K)), 1)[:, ::-1]
+        pos = [hi, lo]
+        rows = [r[:, ::-1] for r in rows]  # ties: the higher row first
+    return _crafted(rng, pos, rows, n_occ, ok)
+
+
+@pytest.mark.parametrize("name", [
+    "equal_positions", "max_position", "negative_positions",
+    "empty_and_not_ok", "all_slots", "full_k512", "reverse_key_order"])
+def test_crafted_entries(name):
+    """The in-kernel order against the plain version's two stable sorts and
+    JAX's, on the edges of the key: equal positions in different rows and
+    in both ends; valid positions at 2^31 - 1 (the invalid entries' sort
+    key in the plain version); negative positions; pairs with no valid
+    entry on one or both ends and pairs that do not enter pairing; every
+    one of the 64 slots valid at K 32 (both keys of every lane) and every
+    one of 1,024 at K 512 (the block network); entries handed in reverse
+    key order."""
+    args = _case(name, np.random.default_rng(sum(map(ord, name))))
+    out0, out1, _ = _check(args, name)
+    assert bool(out0["proper"].any())
+    if name == "empty_and_not_ok":
+        off = ~args[6] | (args[0]["n_occ"] == 0) | (args[1]["n_occ"] == 0)
+        assert not bool(out0["proper"][off].any())
+    if name == "max_position":
+        assert bool((args[0]["pos"] == 2 ** 31 - 1).any())
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_valid_entries_come_first(seed):
-    """The kernel's sweep stops at a row's first invalid entry, so the
-    sorted planes must hold every valid entry before any invalid one: with
-    scattered valid flags, positions at both ends of int32 (a valid
-    2^31 - 1 ties with the invalid entries' sort key) and pairs that do
-    not enter pairing."""
+    """The plain version's two stable sorts hold every valid entry before
+    any invalid one (the order the kernel's key gives, which sorts the
+    valid entries only): with scattered valid flags, positions at both ends
+    of int32 (a valid 2^31 - 1 ties with the invalid entries' sort key) and
+    pairs that do not enter pairing."""
     rng = np.random.default_rng(seed)
     P, K = 64, 16
 
