@@ -41,7 +41,15 @@ Phases (any failure raises and the script exits non-zero):
    pairing_sweep_plain in every output field and cnt_chg; pairing_sweep
    makes one launch, which orders, sweeps and finishes every pair: that
    launch timed by CUDA events around it, and the wrapper with its
-   penalty table;
+   penalty table; the accumulation kernels (testing/accumulate_cases.py)
+   on 200,000 production-shaped reads x 150 over the same text with
+   10,000 markers, some read 100 deep past the pileup cap of 64: the
+   dense kernel equal to accumulate_plain, the pileup kernel equal to
+   pileup_plain with no slot offsets and with random ones, and the dense
+   kernel in DeviceDenseStats' mode on a chunk of 4,096 x 150 uint8 reads
+   equal to dense_accumulate_plain; each launch timed by CUDA events
+   around it, the wrapper and the plain version (the torch ops the
+   kernels replace) too;
 3. small world: the port's ``index`` + ``align --device_qc`` on
    testing/synthworld.build_synth_pe_world, byte-identical on all 12
    product files to the port's ``align --engine host``, once with the
@@ -54,9 +62,11 @@ Phases (any failure raises and the script exits non-zero):
    printed, not gated: pool 512 and cap 768 are the reference's settings
    for that path).  The default run logs the shapes of its width launches
    (units x codes) and its SW launches (jobs, RL, QL, true cells), and
-   both kernels are checked and timed again at those shapes after it.  The
-   kernel launch counts are zeroed right before each device run and read
-   right after it;
+   both kernels are checked and timed again at those shapes after it, as
+   is its first DeviceDenseStats chunk (the dense accumulation kernel's
+   inputs and output) against the plain version.  The kernel launch
+   counts are zeroed right before each device run and read right after
+   it; each device run must launch the dense accumulation kernel;
 5. program: the one-program QC step (qc_program, ops/qc_full.qc_step_full)
    in pair mode with drand48 on.  On the small world's files, run_single
    on the card and on the CPU (the plain versions): every accumulator,
@@ -74,10 +84,11 @@ Phases (any failure raises and the script exits non-zero):
    drand48 stages apart, and the fill pass's pairing stage split into
    its isize inference, two expansions and sweep by CUDA events around
    them; its pairing kernel launches must equal the sweeps it ran.
-   After each run, every drand48 launch and every pairing
-   sweep it made is held to the plain version on its own inputs (and
-   timed again on them), and the resident run's first-pass search launch
-   to the plain search on 4,096 evenly spaced reads of its chunk.
+   After each run, every drand48 launch, every pairing sweep and every
+   accumulate and pileup launch (first pass and fill pass) it made is
+   held to the plain version on its own inputs (and timed again on
+   them), and the resident run's first-pass search launch to the plain
+   search on 4,096 evenly spaced reads of its chunk.
 
 6. pipeline: the stages after align.  On the small world (phase 3's),
    ``align --device_qc --shard_out`` on each half of its FASTQs by
@@ -111,7 +122,8 @@ Phases (any failure raises and the script exits non-zero):
    product files identical to phase 5's single-device runs (made here
    when phase 5 did not run), every rank equal, each rank's width,
    search (chain 4) or scan and drand48 kernels launched, and each of its
-   pairing sweeps, one launch each, held to the plain version on its own
+   pairing sweeps, one launch each, and each of its accumulate and pileup
+   launches (with its marker_base) held to the plain version on its own
    inputs after its run.  Each rank logs
    its world's load time, stage times (with "exchange": the collectives
    and the merge, waiting for the slowest rank included), whole wall
@@ -190,6 +202,14 @@ KERNELS = {
     # no pallas_call: a lax.scan over each pair's entries (:391)
     "pairing": ("fastquick_tpu_torch/csrc/pairing.cu",
                 "fastquick_tpu/ops/pe_device.py:221"),
+    # no pallas_call: XLA scatter-adds inside qc_step_full (and the same
+    # sums in align/device_qc.py:70 accum)
+    "accumulate": ("fastquick_tpu_torch/csrc/accumulate.cu",
+                   "fastquick_tpu/ops/qc_full.py:623"),
+    # no pallas_call: a scatter in read order, its ranks from
+    # _pileup_ranks (:227, a stable argsort and an associative_scan)
+    "pileup": ("fastquick_tpu_torch/csrc/accumulate.cu",
+               "fastquick_tpu/ops/qc_full.py:666"),
 }
 # the chain-length check's step cap: low enough that some reads reach it
 CHAIN_CAP = 256
@@ -203,6 +223,14 @@ PAIRING_SHAPES = ((100_000, 32), (64, 512))
 # the drand48 draw's production-shaped batch, and the read of it whose
 # first draw the speculation-break check makes 0
 DRAW_PROD_READS, DRAW_ZERO_AT = 200_000, 123_457
+# the accumulation kernels' shapes: the one-program step's batch (reads x
+# L over the kernels phase's text, with the production world's 10,000
+# markers; some markers read deep past the pileup cap) and a
+# DeviceDenseStats chunk (reads x L, uint8)
+ACC_READS, ACC_L, ACC_MARKERS, ACC_FLANK, ACC_CAP = 200_000, 150, 10_000, \
+    250, 64
+ACC_DEEP = (50, 100)  # markers read deep, reads over each
+DQC_READS, DQC_L = 4096, 150
 
 
 def log(msg: str) -> None:
@@ -567,6 +595,7 @@ def phase_kernels(seed: int, dev: str = "cuda", text_len: int = 6_500_000,
     res["drand48"] = drand48_case(dev, rng, n_draw)
     pairs = [pairing_case(dev, rng, P, K) for P, K in PAIRING_SHAPES]
     res["pairing"] = dict(pairs[0], second_pass=pairs[1])
+    res.update(accumulate_case(dev, rng, text))
     build.reset_launch_counts()
     return res
 
@@ -801,24 +830,7 @@ def pairing_case(dev, rng, P: int, K: int) -> dict:
                              f"{build.launch_counts['pairing']} launches")
     same_sweep(got, pairing_sweep_plain(*args),
                f"pairing kernel != plain at P={P} K={K}")
-    lib = build.cuda_library()
-    launch = lib.fq_pairing_launch
-    ev = []
-
-    def timed_launch(*a):
-        e = (torch.cuda.Event(enable_timing=True),
-             torch.cuda.Event(enable_timing=True))
-        e[0].record()
-        rc = launch(*a)
-        e[1].record()
-        ev.append(e)
-        return rc
-
-    with mock.patch.object(lib, "fq_pairing_launch", timed_launch):
-        for _ in range(4):
-            pairing_sweep(*args)
-    torch.cuda.synchronize()
-    runs = [a.elapsed_time(b) for a, b in ev[1:]]
+    runs = _launch_ms("fq_pairing_launch", lambda: pairing_sweep(*args))
     ms = sum(runs) / len(runs)
     wrapper_ms = cuda_ms(lambda: pairing_sweep(*args), 3)
     table_ms = cuda_ms(lambda: penalty_table(args[7]), 3)
@@ -839,6 +851,206 @@ def pairing_case(dev, rng, P: int, K: int) -> dict:
         f"{n_words} words, {n_cmp:.0f} compares, {out['proper']} proper "
         f"pairs, cnt_chg {out['cnt_chg']}; one launch, every output equal")
     return out
+
+
+def _launch_ms(name: str, fn, reps: int = 3) -> list:
+    """The device time (ms) of the one C launch `name` that fn() makes, by
+    CUDA events around it, over reps runs after a warm-up."""
+    import torch
+
+    from fastquick_tpu_torch.kernels import build
+
+    lib = build.cuda_library()
+    launch = getattr(lib, name)
+    ev = []
+
+    def timed(*a):
+        e = (torch.cuda.Event(enable_timing=True),
+             torch.cuda.Event(enable_timing=True))
+        e[0].record()
+        rc = launch(*a)
+        e[1].record()
+        ev.append(e)
+        return rc
+
+    with mock.patch.object(lib, name, timed):
+        for _ in range(reps + 1):
+            fn()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in ev[1:]]
+
+
+def _marker_bases(tables, n_text: int, t: dict) -> tuple[int, int]:
+    """(covered bases at a marker's pac position, reads with a pileup
+    entry) of a qc case's tensors: the counts pileup_bound takes."""
+    import torch
+
+    L = t["seqs"].shape[1]
+    offs = torch.arange(L, device=t["pos"].device)[None]
+    cover = t["eligible"][:, None] & (offs < t["lens"][:, None])
+    pac = (t["pos"][:, None] + offs).clamp(0, n_text)
+    on_mk = cover & (tables.marker_id[pac] >= 0)
+    entry = on_mk & (tables.site_idx[pac] >= 0)
+    return int(on_mk.sum()), int(entry.any(1).sum())
+
+
+def accumulate_case(dev, rng, text) -> dict:
+    """The accumulation kernels against their plain versions: ACC_READS
+    production-shaped reads x ACC_L over `text` with ACC_MARKERS markers
+    (testing/accumulate_cases.qc_case: both strands, ragged, some past the
+    text's end, ACC_DEEP reads over a few markers past the cap), the dense
+    kernel, and the pileup kernel without and with random slot offsets;
+    then a DeviceDenseStats chunk of DQC_READS x DQC_L (uint8, quality
+    characters that wrap).  Every output equal; each launch timed by CUDA
+    events around it, the wrapper and the plain version (the torch ops the
+    kernels replace) too; the bounds from this run's inputs."""
+    import numpy as np
+    import torch
+
+    from fastquick_tpu_torch.kernels import build
+    from fastquick_tpu_torch.ops import accumulate as acc
+    from fastquick_tpu_torch.ops.qc_full import synthetic_site_tables
+    from fastquick_tpu_torch.testing import accumulate_cases as ac
+    from fastquick_tpu_torch.utils.bounds import (
+        accumulate_bound,
+        pileup_bound,
+    )
+
+    def put(case):
+        return {k: None if v is None else torch.from_numpy(
+            np.asarray(v)).to(dev) for k, v in case.items()
+            if k != "pileup_cap"}
+
+    for name in (*ac.QC_EDGE, "marker_at_zero"):
+        spec, etext, case = ac.edge_case(name)
+        tab = ac.edge_tables(name, spec, etext, dev)
+        t = put(case)
+        ep = [t[k] for k in ("seqs", "rseqs", "quals", "lens", "eligible",
+                             "pos", "strand")]
+        ac.same_outputs(acc.accumulate(tab, len(etext), *ep),
+                        acc.accumulate_plain(tab, len(etext), *ep),
+                        f"accumulate kernel != plain ({name})")
+        tail = (t["mapq"], case["pileup_cap"], t["marker_base"])
+        ac.same_outputs(acc.pileup(tab, len(etext), *ep, *tail),
+                        acc.pileup_plain(tab, len(etext), *ep, *tail),
+                        f"pileup kernel != plain ({name})")
+    for name in ac.REF_EDGE:
+        spec, etext, case = ac.edge_case(name, ref=True)
+        tab = ac.edge_tables(name, spec, etext, dev)
+        t = put(case)
+        args = (tab, len(etext), t["pos"], t["strand"], t["codes"],
+                t["quals"], t["lens"])
+        if not torch.equal(acc.dense_accumulate(*args), acc.pack_dense_plain(
+                acc.dense_accumulate_plain(*args), tab.n_sites)):
+            raise AssertionError(f"dense kernel != plain ({name})")
+    log(f"accumulate edge cases ({', '.join(ac.QC_EDGE)}, marker_at_zero; "
+        f"DeviceDenseStats {', '.join(ac.REF_EDGE)}): dense and pileup "
+        "kernels equal to plain")
+
+    t0 = time.perf_counter()
+    n_text = len(text)
+    tables = synthetic_site_tables(text, ACC_MARKERS, ACC_FLANK, device=dev)
+    mpos = np.linspace(ACC_FLANK, n_text - ACC_FLANK - 1,
+                       ACC_MARKERS).astype(np.int64)
+    case = ac.qc_case(rng, text, mpos, ACC_READS, ACC_L,
+                      deep_markers=ACC_DEEP[0], deep_reads=ACC_DEEP[1],
+                      pileup_cap=ACC_CAP, marker_base=True)
+    t = put(case)
+    planes = [t[k] for k in ("seqs", "rseqs", "quals", "lens", "eligible",
+                             "pos", "strand")]
+    mapq, mb = t["mapq"], t["marker_base"]
+    S, M = tables.n_sites, tables.n_markers
+    log(f"accumulate case: {ACC_READS} reads x {ACC_L} over {n_text / 1e6:.1f}"
+        f" Mbp, {M} markers, {S} sites; made in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    build.reset_launch_counts()
+    got = acc.accumulate(tables, n_text, *planes)
+    want = acc.accumulate_plain(tables, n_text, *planes)
+    ac.same_outputs(got, want, "accumulate kernel != plain")
+    piles = {}
+    for what, base in (("no offsets", None), ("slot offsets", mb)):
+        pg = acc.pileup(tables, n_text, *planes, mapq, ACC_CAP, base)
+        pw = acc.pileup_plain(tables, n_text, *planes, mapq, ACC_CAP, base)
+        ac.same_outputs(pg, pw, f"pileup kernel != plain ({what})")
+        piles[what] = pw
+    if (build.launch_counts["accumulate"], build.launch_counts["pileup"]) \
+            != (1, 2):
+        raise AssertionError(f"accumulate case launched "
+                             f"{build.launch_counts}")
+
+    def dense():
+        return acc.accumulate(tables, n_text, *planes)
+
+    def pile():
+        return acc.pileup(tables, n_text, *planes, mapq, ACC_CAP, None)
+
+    d_runs = _launch_ms("fq_accum_dense_launch", dense)
+    p_runs = _launch_ms("fq_accum_pileup_launch", pile)
+    lens = t["lens"].clamp(0, ACC_L)
+    n_cover = int(torch.where(t["eligible"], lens, 0).sum())
+    n_reg = int(want["n_base_mapped"])
+    n_entries = int(piles["no offsets"]["pileup_cnt"].long().sum())
+    n_on_marker, n_entry_reads = _marker_bases(tables, n_text, t)
+    res = {}
+    bms, by = accumulate_bound(ACC_READS, n_cover, n_reg, S, 4, 25)
+    res["accumulate"] = dict(
+        ms=sum(d_runs) / len(d_runs), runs=d_runs,
+        wrapper_ms=cuda_ms(dense, 3), max_abs_err=0,
+        plain_ms=cuda_ms(lambda: acc.accumulate_plain(tables, n_text,
+                                                       *planes), 1),
+        bound_ms=bms, bound_by=by, reads=ACC_READS, L=ACC_L, covered=n_cover,
+        in_region=n_reg, sites=S)
+    bms, by = pileup_bound(ACC_READS, n_cover, n_on_marker, n_entries,
+                           n_entry_reads, M, ACC_CAP, 4)
+    ovf = {k: int(v["pileup_ovf"]) for k, v in piles.items()}
+    res["pileup"] = dict(
+        ms=sum(p_runs) / len(p_runs), runs=p_runs, wrapper_ms=cuda_ms(pile, 3),
+        max_abs_err=0,
+        plain_ms=cuda_ms(lambda: acc.pileup_plain(
+            tables, n_text, *planes, mapq, ACC_CAP, None), 1),
+        bound_ms=bms, bound_by=by, entries=n_entries,
+        on_marker=n_on_marker, entry_reads=n_entry_reads,
+        deepest=int(piles["no offsets"]["pileup_cnt"].max()), overflow=ovf)
+    for name in ("accumulate", "pileup"):
+        r = res[name]
+        log(f"{name} N={ACC_READS} L={ACC_L}: kernel {r['ms']:.4f} ms (runs "
+            f"{', '.join(f'{x:.4f}' for x in r['runs'])}), wrapper "
+            f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}); equal")
+    log(f"accumulate case: {n_cover} covered bases, {n_reg} in regions, "
+        f"{n_on_marker} at a marker; {n_entries} pileup entries from "
+        f"{n_entry_reads} reads, deepest marker "
+        f"{res['pileup']['deepest']}, past the cap {ovf}; one dense and "
+        "two pileup launches, every output equal")
+
+    # a DeviceDenseStats chunk: uint8 planes in reference orientation
+    rc = ac.ref_case(rng, text, mpos, DQC_READS, DQC_L, wrap=0.01)
+    r = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in rc.items()}
+    args = (tables, n_text, r["pos"], r["strand"], r["codes"], r["quals"],
+            r["lens"])
+    got = acc.dense_accumulate(*args)
+    want = acc.pack_dense_plain(acc.dense_accumulate_plain(*args), S)
+    if not torch.equal(got, want):
+        bad = (got != want).nonzero()[:5].flatten().tolist()
+        raise AssertionError(f"dense kernel != plain (DeviceDenseStats "
+                             f"chunk) at {bad}")
+    q_runs = _launch_ms("fq_accum_dense_launch",
+                        lambda: acc.dense_accumulate(*args))
+    n_cover = int(r["lens"].clamp(0, DQC_L).sum())
+    n_reg = int(acc.unpack_dense(want, S)["n_base_mapped"])
+    bms, by = accumulate_bound(DQC_READS, n_cover, n_reg, S, 1, 24)
+    res["accumulate"]["device_qc"] = dq = dict(
+        ms=sum(q_runs) / len(q_runs), runs=q_runs,
+        wrapper_ms=cuda_ms(lambda: acc.dense_accumulate(*args), 3),
+        plain_ms=cuda_ms(lambda: acc.dense_accumulate_plain(*args), 1),
+        bound_ms=bms, bound_by=by, reads=DQC_READS, L=DQC_L,
+        covered=n_cover, in_region=n_reg)
+    log(f"accumulate N={DQC_READS} L={DQC_L} (DeviceDenseStats chunk, "
+        f"uint8): kernel {dq['ms']:.4f} ms, wrapper {dq['wrapper_ms']:.4f} "
+        f"ms, plain {dq['plain_ms']:.3f} ms, bound {bms:.5f} ms ({by}); "
+        "equal")
+    return res
 
 
 def width_case(fm, units, sel, reps: int = 3):
@@ -912,14 +1124,25 @@ def _align(argv: list[str], logf) -> dict:
 def _device_run(argv: list[str], logf, kernel: str,
                 calls: dict | None = None) -> tuple[dict, dict]:
     """One ``align --device_qc`` run with the launch counts zeroed just
-    before it; returns its stats and its launch counts.  If calls is a
-    dict, the inputs of each SW and width kernel launch are appended to
-    its lists "sw" and "width"."""
+    before it; returns its stats and its launch counts (it raises unless
+    its search kernel and the dense accumulation kernel launched).  If
+    calls is a dict, the inputs of each SW and width kernel launch are
+    appended to its lists "sw" and "width", and the first DeviceDenseStats
+    chunk's inputs and output to "dense"."""
+    from fastquick_tpu_torch.align import device_qc
     from fastquick_tpu_torch.kernels import build
     from fastquick_tpu_torch.ops import batch_search, sw_kernels
 
     launch_sw = sw_kernels.sw_forward_batch
     launch_width = batch_search.width
+    launch_dense = device_qc.dense_accumulate
+
+    def record_dense(*args):
+        out = launch_dense(*args)
+        if not calls["dense"]:
+            calls["dense"].append(([a.clone() if hasattr(a, "clone") else a
+                                    for a in args], out.clone()))
+        return out
 
     def record_sw(*args):
         calls["sw"].append([t.clone() for t in args])
@@ -936,15 +1159,44 @@ def _device_run(argv: list[str], logf, kernel: str,
             mock.patch.object(sw_kernels, "sw_forward_batch",
                               record_sw if rec else launch_sw), \
             mock.patch.object(batch_search, "width",
-                              record_width if rec else launch_width):
+                              record_width if rec else launch_width), \
+            mock.patch.object(device_qc, "dense_accumulate",
+                              record_dense if rec else launch_dense):
         st = _align(argv + ["--device_qc"], logf)
     launches = dict(build.launch_counts)
     # the resident kernel counts its launches as "search"
     ran, idle = ("scan", "search") if kernel == "scan" else ("search", "scan")
-    if st["search_kernel"] != kernel or not launches[ran] or launches[idle]:
+    if st["search_kernel"] != kernel or not launches[ran] or launches[idle] \
+            or not launches["accumulate"]:
         raise AssertionError(f"{kernel} run used the {st['search_kernel']} "
                              f"kernel, launches {launches}")
     return st, launches
+
+
+def _check_dense_chunk(recorded: list, n_launches: int) -> dict:
+    """The production align's first DeviceDenseStats chunk (its recorded
+    inputs and output) against the plain version, the kernel timed again
+    on it."""
+    import torch
+
+    from fastquick_tpu_torch.ops import accumulate as acc
+
+    if not recorded:
+        raise AssertionError("production align: no DeviceDenseStats chunk")
+    args, got = recorded[0]
+    want = acc.pack_dense_plain(acc.dense_accumulate_plain(*args),
+                                args[0].n_sites)
+    if not torch.equal(got, want):
+        bad = (got != want).nonzero()[:5].flatten().tolist()
+        raise AssertionError(f"production DeviceDenseStats chunk != plain "
+                             f"at {bad}")
+    B, L = args[4].shape
+    out = dict(reads=B, L=L, launches=n_launches,
+               ms=cuda_ms(lambda: acc.dense_accumulate(*args), 3))
+    log(f"production align: {n_launches} dense accumulation launches; its "
+        f"first DeviceDenseStats chunk ({B} reads x {L}) equal to plain, "
+        f"dense_accumulate {out['ms']:.4f} ms")
+    return out
 
 
 def phase_small(work: Path, logf) -> dict:
@@ -1000,7 +1252,7 @@ def phase_production(work: Path, logf, seed: int, pairs: int,
         f"{t_world:.1f}s")
     common = ["--fastq_1", w["fq1"], "--fastq_2", w["fq2"],
               "--index_prefix", w["idx_prefix"]]
-    calls: dict = {"sw": [], "width": []}
+    calls: dict = {"sw": [], "width": [], "dense": []}
     dev, launches = _device_run(common + ["--out_prefix", str(d / "dev")],
                                 logf, "resident", calls)
     nat = _align(common + ["--out_prefix", str(d / "nat"),
@@ -1041,6 +1293,7 @@ def phase_production(work: Path, logf, seed: int, pairs: int,
         log(f"production SW {sw_shapes[-1]['launch']} launch: {B} jobs, RL "
             f"{RL}, QL {QL}, {cells} true cells ({share:.1%} of the "
             f"padded); kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, equal")
+    dense_chunk = _check_dense_chunk(calls["dense"], launches["accumulate"])
     del calls
 
     scan, scan_launches = _device_run(
@@ -1064,7 +1317,7 @@ def phase_production(work: Path, logf, seed: int, pairs: int,
                 reads_per_s=rps, native_reads_per_s=w["n_reads"]
                 / nat["wall_s"], fallback_share=share, launches=launches,
                 world_s=t_world, sw_launches=sw_shapes,
-                width_launches=width_shapes,
+                width_launches=width_shapes, dense_chunk=dense_chunk,
                 scan=dict(device=scan, launches=scan_launches,
                           reads_per_s=scan_rps, fallback_share=scan_share),
                 world=w)
@@ -1079,6 +1332,20 @@ PROGRAM_COUNTERS = ("n_mapped", "n_eligible", "n_pair_reads", "n_pcr_dup",
 
 def _stage_line(times: dict) -> str:
     return ", ".join(f"{k} {v:.3f}s" for k, v in times.items())
+
+
+def _segments() -> dict:
+    """The caching allocator's device allocations (cudaMalloc calls) and
+    its retries after freeing its cache, so far in this process."""
+    import torch
+
+    st = torch.cuda.memory_stats()
+    return dict(segments=st.get("segment.all.allocated", 0),
+                retries=st.get("num_alloc_retries", 0))
+
+
+def _seg_delta(a: dict, b: dict) -> dict:
+    return {k: b[k] - a[k] for k in a}
 
 
 @contextlib.contextmanager
@@ -1230,6 +1497,33 @@ def _check_draws(draws: list, name: str) -> list:
     return out
 
 
+def _check_accumulates(calls: list, launches: dict, name: str) -> list:
+    """Each recorded accumulate and pileup launch of a production run (the
+    first pass's and the fill pass's) against the plain version on its
+    own inputs, every output equal; the wrapper timed again on them.
+    Raises unless the launches counted are the calls recorded."""
+    from fastquick_tpu_torch.ops import accumulate as acc
+    from fastquick_tpu_torch.testing.accumulate_cases import check_launches
+
+    n = {k: sum(c[0] == k for c in calls) for k in ("accumulate", "pileup")}
+    if any(not v or launches[k] != v for k, v in n.items()):
+        raise AssertionError(f"production {name}: recorded {n}, launched "
+                             f"{launches}")
+    t0 = time.perf_counter()
+    held = check_launches(calls, f"production {name}")
+    plain_s = time.perf_counter() - t0
+    fns = {"accumulate": acc.accumulate, "pileup": acc.pileup}
+    out = [dict(kind=kind, reads=B, L=L, marker_base=mb,
+                ms=cuda_ms(lambda: fns[kind](*args), 3))
+           for (kind, B, L, mb), (_, args, _) in zip(held, calls)]
+    log(f"program production, {name}: its {n['accumulate']} accumulate and "
+        f"{n['pileup']} pileup launches equal to plain in every output ("
+        + ", ".join(f"{c['kind']} {c['reads']} x {c['L']}, marker_base "
+                    f"{c['marker_base']}, {c['ms']:.4f} ms" for c in out)
+        + f"; plain {plain_s:.2f}s all)")
+    return out
+
+
 def _check_search(call, name: str) -> dict:
     """The first pass's search launch of a production run against the
     plain version on an evenly spaced sample of its reads: hits, fallback
@@ -1265,6 +1559,31 @@ def _check_search(call, name: str) -> dict:
     return out
 
 
+def _unrecorded_run(qp, world, engine, name: str, recorded) -> dict:
+    """The production recipe once more with nothing recorded (the
+    recording holds the first pass's planes and search inputs until its
+    checks): its stage times and the allocator's new segments, and its
+    accumulators and rows equal to the recorded run's."""
+    import torch
+
+    times: dict = {}
+    seg0 = _segments()
+    t0 = time.perf_counter()
+    stats, rows, _ = qp.run_with_fill(world, engine=engine, kernel=name,
+                                      times=times)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    alloc = _seg_delta(seg0, _segments())
+    qp.same_run((stats, rows), recorded,
+                f"production {name}, unrecorded vs recorded")
+    step_s = sum(v for k, v in times.items()
+                 if k not in ("first_pass", "host_redo"))
+    log(f"program production, {name}, again with nothing recorded: whole "
+        f"{wall:.2f}s, fill pass {step_s:.3f}s; stages {_stage_line(times)};"
+        f" allocator {alloc}; equal to the recorded run")
+    return dict(wall_s=wall, step_s=step_s, times=times, alloc=alloc)
+
+
 def phase_program(work: Path, logf, seed: int, pairs: int,
                   small_w: dict | None = None,
                   prod_w: dict | None = None) -> dict:
@@ -1273,6 +1592,9 @@ def phase_program(work: Path, logf, seed: int, pairs: int,
     from fastquick_tpu_torch import qc_program as qp
     from fastquick_tpu_torch.align.engine import NativeEngine
     from fastquick_tpu_torch.kernels import build
+    from fastquick_tpu_torch.testing.accumulate_cases import (
+        recorded_launches,
+    )
     from fastquick_tpu_torch.testing.synthworld import (
         build_production_world,
         build_synth_pe_world,
@@ -1345,15 +1667,17 @@ def phase_program(work: Path, logf, seed: int, pairs: int,
                                          step_cap=QC_CAP_PER_BASE * 160)),
                        ("scan", dict(pool=512, chain=1, step_cap=768))):
         world["opt_args"].update(opts)
-        calls: dict = {"draw": [], "search": [], "pairing": []}
+        calls: dict = {"draw": [], "search": [], "pairing": [], "acc": []}
         build.reset_launch_counts()
         times = {}
+        seg0 = _segments()
         t0 = time.perf_counter()
-        with _recording(calls):
+        with _recording(calls), recorded_launches(calls["acc"]):
             stats, rows, fb1 = qp.run_with_fill(world, engine=engine,
                                                 kernel=name, times=times)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        alloc = _seg_delta(seg0, _segments())
         launches = dict(build.launch_counts)
         if int(stats["n_fallback"]):
             raise AssertionError(f"production {name}: "
@@ -1373,7 +1697,7 @@ def phase_program(work: Path, logf, seed: int, pairs: int,
                                     for k, v in stats.items()},
                              rows=rows, files=files), fh)
         res[name] = dict(opts=opts, fallback_first=fb1, wall_s=wall,
-                         saved=str(saved),
+                         saved=str(saved), alloc=alloc,
                          step_s=step_s, times=times, launches=launches,
                          reads_per_s=n_reads / wall,
                          step_reads_per_s=n_reads / step_s, **counters)
@@ -1382,7 +1706,7 @@ def phase_program(work: Path, logf, seed: int, pairs: int,
             f"{wall:.2f}s ({n_reads / wall:.0f} reads/s), fill pass "
             f"{step_s:.3f}s ({n_reads / step_s:.0f} reads/s); stages "
             f"{_stage_line(times)} (host redo by {res['redo_engine']}); "
-            f"{counters}; launches {launches}")
+            f"{counters}; launches {launches}; allocator {alloc}")
         if launches["pairing"] != len(calls["pairing"]) or \
                 not launches["pairing"]:
             raise AssertionError(f"production {name}: {len(calls['pairing'])}"
@@ -1404,10 +1728,14 @@ def phase_program(work: Path, logf, seed: int, pairs: int,
             f"ms")
         res[name]["draw_checks"] = _check_draws(calls["draw"], name)
         res[name]["sweep_checks"] = _check_sweeps(calls["pairing"], name)
+        res[name]["accumulate_checks"] = _check_accumulates(
+            calls.pop("acc"), launches, name)
         if calls["search"]:
             res[name]["search_check"] = _check_search(calls["search"][0],
                                                       name)
         del calls
+        res[name]["unrecorded"] = _unrecorded_run(qp, world, engine, name,
+                                                  runs[name]["run"])
     qp.same_run(runs["resident"]["run"], runs["scan"]["run"],
                 "production, resident vs scan")
     n_files = qp.same_files(runs["resident"]["files"],
@@ -1825,7 +2153,7 @@ def phase_mesh(work: Path, logf, seed: int, pairs: int,
     spec = dict(tmp=str(prod_w["tmp"]), idx_prefix=prod_w["idx_prefix"],
                 fq1=prod_w["fq1"], fq2=prod_w["fq2"], device=dev, L=160,
                 bitmaps=True, pileup_cap=64, engine="native",
-                check_sweeps=True, runs=runs)
+                check_kernels=True, runs=runs)
     single = {}
     if program is not None:
         for run in runs:
@@ -1847,7 +2175,8 @@ def phase_mesh(work: Path, logf, seed: int, pairs: int,
         res["production"]["ranks"].append(dict(
             rank=r["rank"], load_s=r["load_s"], peak_bytes=r["peak_bytes"],
             runs={k: {f: v[f] for f in ("wall_s", "times", "launches",
-                                        "fallback_first", "sweeps_held")}
+                                        "fallback_first", "sweeps_held",
+                                        "accumulations_held")}
                   for k, v in r["runs"].items()}))
     for run in runs:
         name = run["name"]
@@ -1871,10 +2200,21 @@ def phase_mesh(work: Path, logf, seed: int, pairs: int,
                                      f"{r['rank']}: {len(held)} sweeps held "
                                      f"to plain, {x['launches']['pairing']} "
                                      "pairing launches")
+            acc_held = x["accumulations_held"]
+            n_acc = {k: sum(h[0] == k for h in acc_held)
+                     for k in ("accumulate", "pileup")}
+            if not all(n_acc.values()) or (dev == "cuda" and any(
+                    x["launches"][k] != v for k, v in n_acc.items())):
+                raise AssertionError(f"mesh production {name}, rank "
+                                     f"{r['rank']}: accumulations held "
+                                     f"{n_acc}, launches {x['launches']}")
             log(f"mesh production, {name} kernel, {_rank_line(r, name)}; "
                 f"first pass {x['fallback_first']} fallback reads; its "
                 f"{len(held)} pairing sweeps ((pairs, k_occ, cnt_chg): "
-                f"{held}) equal to plain in every output and cnt_chg")
+                f"{held}) equal to plain in every output and cnt_chg; its "
+                f"{n_acc['accumulate']} accumulate and {n_acc['pileup']} "
+                f"pileup launches ((kind, B, L, marker_base's largest "
+                f"offset): {acc_held}) equal to plain in every output")
         qp.same_run((a["stats"], a["rows"]), (b["stats"], b["rows"]),
                     f"mesh production {name}: rank 1 against rank 0")
         # n_reads counts padding rows; the production batch has none, but
@@ -2080,7 +2420,9 @@ def main() -> int:
     program = result["program"]["resident"]["launches"]
     launches = dict(prod["launches"], scan=prod["scan"]["launches"]["scan"],
                     search_chain=program["search_chain"],
-                    drand48=program["drand48"], pairing=program["pairing"])
+                    drand48=program["drand48"], pairing=program["pairing"],
+                    accumulate=program["accumulate"],
+                    pileup=program["pileup"])
     missing = [k for k in KERNELS if not launches.get(k)]
     if missing:
         raise AssertionError(f"main path launched no {missing} kernel")

@@ -1,12 +1,15 @@
 // Host (g++) build of the kernels' bodies, for the CPU tests: the same
 // width_unit / fq_resident_read / fq_scan_* round pieces / sw_lane_step /
-// fq_drand_* / fq_pair_sweep code that nvcc compiles into width.cu,
-// search.cu, scan.cu, sw.cu, drand48.cu and pairing.cu, with the kernels'
+// fq_drand_* / fq_pair_sweep / fq_acc_* code that nvcc compiles into
+// width.cu, search.cu, scan.cu, sw.cu, drand48.cu, pairing.cu and
+// accumulate.cu, with the kernels'
 // argument layouts and their order of evaluation emulated serially.
 // Never used on the product path.
 #include <algorithm>
+#include <climits>
 #include <vector>
 
+#include "accumulate_body.cuh"
 #include "drand48_body.cuh"
 #include "pairing_body.cuh"
 #include "search_body.cuh"
@@ -356,6 +359,122 @@ extern "C" int fq_pairing_host(FQ_PAIR_IN_ARGS, int32_t* out,
     }
     for (int q = 0; q < W && base + q < P; ++q)
       *cnt += fq_pair_sweep(in, base + q, sk + base + q, P, nn[q], o);
+  }
+  return 0;
+}
+
+// The dense accumulation kernel's blocks (accumulate.cu's
+// fq_accum_dense_launch arguments; nblocks its grid), in order: each
+// block's grid-stride walk a warp of 32 bases at a time (the dense3 adds
+// and cycle bins base by base, then the warp's quality bins a group of
+// equal values at a time, as __match_any_sync groups them), then the
+// block's nonzero bins and region count into the output; then depth, q20
+// and q30 from dense3.  dense3 and out are zeroed here; the adds wrap mod
+// 2^32 as the device's atomics do.
+extern "C" int fq_accum_dense_host(FQ_ACC_IN_ARGS, int nblocks,
+                                   int32_t* dense3, int32_t* out) {
+  const FqAccIn a = fq_acc_in(FQ_ACC_IN_NAMES);
+  const int T = 256, total = B * L, stride = nblocks * T;
+  auto add = [](int32_t& x, int v) { x = (int32_t)((uint32_t)x + v); };
+  std::fill(dense3, dense3 + 3 * ((int64_t)S + 1), 0);
+  std::fill(out, out + fq_acc_out_size(S), 0);
+  int32_t* hist = out + fq_acc_hist_at(S, 0);
+  std::vector<int32_t> h(4 * 256);
+  for (int blk = 0; blk < nblocks; ++blk) {
+    std::fill(h.begin(), h.end(), 0);
+    int n_reg = 0;
+    for (int base = blk * T; base < total; base += stride) {
+      for (int w0 = base; w0 < base + T; w0 += 32) {
+        int qkey[32];
+        for (int l = 0; l < 32; ++l) {
+          const int i = w0 + l;
+          qkey[l] = -1;
+          if (i >= total) continue;
+          const int b = i / L, j = i - b * L;
+          FqAccBase o;
+          if (!fq_acc_locate(a, b, j, o)) continue;
+          fq_acc_read(a, b, j, o);
+          const int mism = fq_acc_mism(a, o);
+          add(dense3[o.site + fq_acc_tier(o.bq) * (S + 1)], 1);
+          const int cb = fq_acc_cycle_bin(o.cycle);
+          ++h[2 * 256 + cb];
+          if (mism) ++h[3 * 256 + cb];
+          qkey[l] = o.bq << 1 | mism;
+          ++n_reg;
+        }
+        for (int l = 0; l < 32; ++l) {
+          if (qkey[l] < 0) continue;
+          int c = 0, first = l;
+          for (int k = 0; k < 32; ++k)
+            if (qkey[k] == qkey[l]) {
+              ++c;
+              first = std::min(first, k);
+            }
+          if (first != l) continue;
+          h[qkey[l] >> 1] += c;
+          if (qkey[l] & 1) h[256 + (qkey[l] >> 1)] += c;
+        }
+      }
+    }
+    for (int k = 0; k < 4 * 256; ++k)
+      if (h[k]) add(hist[k], h[k]);
+    if (n_reg) add(hist[4 * 256], n_reg);
+  }
+  for (int s = 0; s < S; ++s) fq_acc_finish_site(dense3, S, s, out);
+  return 0;
+}
+
+// The pileup kernel's four steps in order (accumulate.cu's
+// fq_accum_pileup_launch arguments): each marker's entry count, the
+// exclusive scan, the buckets filled in reverse grid order (the kernel's
+// atomics give any order; the reverse keeps read order from coming out by
+// chance), then each marker's warp: up to 32 entries ranked by comparing
+// each index with the others, more by taking the next smallest index once
+// a kept slot.  Outputs zeroed here.
+extern "C" int fq_accum_pileup_host(FQ_ACC_IN_ARGS,
+                                    const int32_t* marker_base, int M,
+                                    int cap, int32_t* pileup, int32_t* cnt,
+                                    int32_t* ovf, int32_t* off,
+                                    int32_t* bucket) {
+  const FqAccIn a = fq_acc_in(FQ_ACC_IN_NAMES);
+  const int total = B * L;
+  std::fill(pileup, pileup + (int64_t)M * cap, 0);
+  std::fill(cnt, cnt + M, 0);
+  *ovf = 0;
+  if (total <= 0 || M <= 0) return 0;
+  for (int i = 0; i < total; ++i) {
+    const int mk = fq_acc_marker(a, i);
+    if (mk >= 0) ++cnt[mk];
+  }
+  off[0] = 0;
+  for (int m = 0; m < M; ++m) off[m + 1] = off[m] + cnt[m];
+  for (int i = total - 1; i >= 0; --i) {
+    const int mk = fq_acc_marker(a, i);
+    if (mk >= 0) bucket[off[mk]++] = i;
+  }
+  for (int m = 0; m < M; ++m) {
+    const int n = cnt[m], base = marker_base ? marker_base[m] : 0;
+    const int kept = fq_acc_kept(n, base, cap);
+    const int32_t* bk = bucket + (off[m] - n);
+    int32_t* row = pileup + (int64_t)m * cap + base;
+    *ovf += n - kept;
+    if (n <= 32) {
+      for (int l = 0; l < n; ++l) {
+        int rank = 0;
+        for (int k = 0; k < n; ++k) rank += bk[k] < bk[l];
+        if (rank < kept && base + rank >= 0)
+          row[rank] = fq_acc_entry(a, bk[l]);
+      }
+      continue;
+    }
+    int last = -1;
+    for (int r = 0; r < kept; ++r) {
+      int lo = INT_MAX;
+      for (int t = 0; t < n; ++t)
+        if (bk[t] > last && bk[t] < lo) lo = bk[t];
+      last = lo;
+      if (base + r >= 0) row[r] = fq_acc_entry(a, last);
+    }
   }
   return 0;
 }

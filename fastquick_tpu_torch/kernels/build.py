@@ -36,7 +36,8 @@ GXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
 
 # "search_chain": the resident search kernel's chain-length build (CH > 1)
 launch_counts = {"width": 0, "search": 0, "search_chain": 0, "scan": 0,
-                 "sw": 0, "drand48": 0, "pairing": 0}
+                 "sw": 0, "drand48": 0, "pairing": 0, "accumulate": 0,
+                 "pileup": 0}
 build_info: dict = {}
 
 _lock = threading.Lock()
@@ -51,6 +52,10 @@ _L = ctypes.c_longlong
 # follow
 _PAIRING_ARGS = ([_I, _I] + [_P] * 7 + [_L, _P, _L, _P, _P, _P, _P]
                  + [_I, _L, _I, _I])
+# the accumulation kernels' inputs (csrc/accumulate_body.cuh
+# FQ_ACC_IN_ARGS); the pileup's marker_base, M and cap, the outputs and
+# the scratch (and the launch's stream) follow
+_ACC_ARGS = [_P] * 12 + [_L] + [_I] * 4
 
 
 def reset_launch_counts() -> None:
@@ -149,6 +154,11 @@ def cuda_library() -> ctypes.CDLL:
             lib.fq_drand48_launch.argtypes = [_P, _P, _I] + [_P] * 5
             lib.fq_pairing_launch.restype = _I
             lib.fq_pairing_launch.argtypes = _PAIRING_ARGS + [_P] * 5
+            lib.fq_accum_dense_launch.restype = _I
+            lib.fq_accum_dense_launch.argtypes = _ACC_ARGS + [_P] * 3
+            lib.fq_accum_pileup_launch.restype = _I
+            lib.fq_accum_pileup_launch.argtypes = (_ACC_ARGS + [_P, _I, _I]
+                                                   + [_P] * 6)
             _cuda_lib = lib
         return _cuda_lib
 
@@ -177,6 +187,11 @@ def host_library() -> ctypes.CDLL:
             lib.fq_drand48_host.argtypes = [_P, _P, _I] + [_P] * 4
             lib.fq_pairing_host.restype = _I
             lib.fq_pairing_host.argtypes = _PAIRING_ARGS + [_P] * 4
+            lib.fq_accum_dense_host.restype = _I
+            lib.fq_accum_dense_host.argtypes = _ACC_ARGS + [_I, _P, _P]
+            lib.fq_accum_pileup_host.restype = _I
+            lib.fq_accum_pileup_host.argtypes = (_ACC_ARGS + [_P, _I, _I]
+                                                 + [_P] * 5)
             _host_lib = lib
         return _host_lib
 

@@ -42,6 +42,12 @@ import torch
 
 from ..align.opts import G_LOG_N
 from ..utils.device import resolve_device
+from .accumulate import (  # noqa: F401  (re-exported as the reference's)
+    _pileup_ranks,
+    accumulate,
+    pileup,
+    ragged_unreverse,
+)
 from .drand48_device import aln2seq_draw_scan, seed_state
 from .fm import DeviceFM
 from .kmer import filter_reads
@@ -64,13 +70,6 @@ __all__ = ["PILEUP_CAP", "SiteTables", "build_site_tables", "unpack_entry",
 PILEUP_CAP = 64  # per-marker pileup slots (device tensor width)
 _i32 = torch.int32
 _i64 = torch.long
-
-
-# packed pileup entry: present(1) | base(3) | qual(7) | mapq(7) |
-# strand(1) | cycle(10)  (cycle < 1024)
-def _pack_entry(base, qual, mapq, strand, cycle):
-    return (1 | (base << 1) | (qual << 4) | (mapq << 11)
-            | (strand << 18) | (cycle << 19))
 
 
 def unpack_entry(v: np.ndarray):
@@ -122,16 +121,6 @@ def _approx_mapq(c1, c2, mm_eq_max):
     return torch.where(c1 == 0, 23, q)
 
 
-def ragged_unreverse(arr: torch.Tensor, lens: torch.Tensor,
-                     fill: int = 4) -> torch.Tensor:
-    """Row-wise arr[b, lens[b]-1-j] (undo bwa's stored reversal with
-    per-row lengths)."""
-    B, L = arr.shape
-    idx = lens.long()[:, None] - 1 - torch.arange(L, device=arr.device)[None]
-    out = arr.gather(1, idx.clamp(0, L - 1))
-    return torch.where(idx >= 0, out, fill)
-
-
 def se_select(n_aln, alns, draw=None):
     """SE selection from the kernel's ordered hit list (packed rows
     [mm|go<<6|ge<<12|a<<18|score<<19, k, l]): best class widths ->
@@ -157,22 +146,6 @@ def se_select(n_aln, alns, draw=None):
         f0, row = a0[:, 0], alns[:, 0, 1].long()
     return (mapped, (f0 >> 18) & 1, row, c1, c2,
             f0 & 63, (f0 >> 6) & 63, (f0 >> 12) & 63)
-
-
-def _pileup_ranks(mk_flat: torch.Tensor, valid: torch.Tensor):
-    """Arrival rank of each candidate within its marker, in flattened
-    (read-major) order == global read order within the batch."""
-    K = mk_flat.shape[0]
-    dev = mk_flat.device
-    keys = torch.where(valid, mk_flat.long(), 0x3FFFFFFF)
-    sk, order = torch.sort(keys, stable=True)
-    is_start = torch.ones(K, dtype=torch.bool, device=dev)
-    is_start[1:] = sk[1:] != sk[:-1]
-    iota = torch.arange(K, device=dev)
-    start_pos = torch.cummax(torch.where(is_start, iota, 0), 0).values
-    ranks = torch.empty(K, dtype=_i32, device=dev)
-    ranks[order] = (iota - start_pos).to(_i32)
-    return ranks
 
 
 def pack_host_hits(reads, rows_idx, B, A_MAX_=A_MAX):
@@ -316,14 +289,13 @@ def qc_step_full(fm_arrays: DeviceFM, tables: SiteTables, opt_args: dict,
     counts pairs in global read order.  Empty: the single-device step."""
     B, L = seqs.shape
     dev = seqs.device
-    S, M = tables.n_sites, tables.n_markers
     n_text = int(opt_args["n_text"])
     stage = _Stages(times, dev)
     lens = lens.long()
 
-    fwd = ragged_unreverse(seqs, lens)  # forward codes, ragged-correct
-    if bitmaps is not None:
-        kept = filter_reads(bitmaps, fwd, lens, thresh)
+    if bitmaps is not None:  # on the forward codes, ragged-correct
+        kept = filter_reads(bitmaps, ragged_unreverse(seqs, lens), lens,
+                            thresh)
     else:
         kept = torch.ones(B, dtype=torch.bool, device=dev)
     if md_table is not None:  # per-read maxdiff (bwa_cal_maxdiff by len)
@@ -413,8 +385,8 @@ def qc_step_full(fm_arrays: DeviceFM, tables: SiteTables, opt_args: dict,
 
     gapped = mapped & ((n_gapo > 0) | (n_gape > 0))
     eligible = mapped & (mapq >= 20) & ~gapped
-    acc = _accumulate(tables, n_text, S, M, seqs, rseqs, quals, lens, fwd,
-                      eligible, pos, strand, mapq, pileup_cap, marker_base)
+    acc = _accumulate(tables, n_text, seqs, rseqs, quals, lens, eligible,
+                      pos, strand, mapq, pileup_cap, marker_base)
     acc.update({
         "n_reads": torch.tensor(B, dtype=_i32, device=dev),
         "n_filtered": _count(~kept),
@@ -618,87 +590,17 @@ def _pair_mode(fm, tables, opt_args, n_text, n_aln, alns, lens, mapped,
     return pair_acc, mapped, pos, strand, mapq, n_gapo, n_gape
 
 
-def _accumulate(tables, n_text, S, M, seqs, rseqs, quals, lens, fwd,
-                eligible, pos, strand, mapq, pileup_cap, marker_base):
+def _accumulate(tables, n_text, seqs, rseqs, quals, lens, eligible, pos,
+                strand, mapq, pileup_cap, marker_base):
     """The per-base accumulators over the covered (B, L) grid and the
-    marker pileups in read order.  (B, L) planes stay int32; only the
-    flat scatter indices are int64."""
-    B, L = seqs.shape
-    dev = seqs.device
-    offs = torch.arange(L, dtype=_i32, device=dev)[None, :]
-    lens32 = lens.to(_i32)[:, None]
-    cover = eligible[:, None] & (offs < lens32)
-    pacp = torch.where(cover, pos[:, None] + offs, n_text).clamp(0, n_text)
-    # read bases / quals / cycles in reference orientation
-    rev = (strand == 1)[:, None]
-    ref_read = torch.where(rev, ragged_unreverse(rseqs, lens),
-                           fwd).to(_i32)
-    ref_qual = torch.where(rev, quals, ragged_unreverse(quals, lens, fill=0))
-    cycle = torch.where(rev, (lens32 - 1 - offs).clamp(0, L), offs)
-    site = tables.site_idx[pacp]  # (B, L) int32
-    mk = tables.marker_id[pacp]
-    fb_base = tables.text[pacp]
-    del pacp
-    in_reg = cover & (site >= 0)
-    del cover
-    site_c = torch.where(in_reg, site.long(), S)
-    del site
-    bq = ref_qual.clamp(0, 93).to(_i32)
-    dbsnp_g = torch.cat([tables.dbsnp,
-                         torch.zeros(1, dtype=torch.bool, device=dev)])
-    mism = (in_reg & (ref_read < 4) & (fb_base < 4) & (ref_read != fb_base)
-            & ~dbsnp_g[site_c])
-    del fb_base
-
-    ones = in_reg.reshape(-1).long()
-    tier = ((bq >= 20).long() + (bq >= 30).long()).reshape(-1)
-    dense3 = torch.zeros(3 * (S + 1), dtype=_i64, device=dev)
-    dense3.index_add_(0, site_c.reshape(-1) + tier * (S + 1), ones)
-    del tier, site_c
-    t0, t1, t2 = (dense3[: S], dense3[S + 1: 2 * S + 1],
-                  dense3[2 * S + 2:][: S])
-    bq_flat = torch.where(in_reg, bq, 255).reshape(-1).long()
-    cyc_flat = torch.where(in_reg, cycle, 255).reshape(-1).clamp(
-        0, 255).long()
-    mism_ones = mism.reshape(-1).long()
-    del mism
-
-    def hist(idx, val):
-        return torch.zeros(256, dtype=_i64, device=dev).index_add_(
-            0, idx, val).to(_i32)
-
-    acc = {"depth": (t0 + t1 + t2).to(_i32), "q20": (t1 + t2).to(_i32),
-           "q30": t2.to(_i32), "emp_rep": hist(bq_flat, ones),
-           "mis_emp_rep": hist(bq_flat, mism_ones),
-           "emp_cycle": hist(cyc_flat, ones),
-           "mis_emp_cycle": hist(cyc_flat, mism_ones)}
-    del bq_flat, cyc_flat, mism_ones, ones
-
-    # ---- marker pileups in read order: the entries on a marker, in
-    # flattened (read-major) order ----
-    on_mk = (in_reg & (mk >= 0)).reshape(-1)
-    idx = on_mk.nonzero()[:, 0]
-    mk_v = mk.reshape(-1)[idx].long()
-    ranks = _pileup_ranks(mk_v, torch.ones_like(mk_v, dtype=torch.bool))
-    b_of = idx // L
-    packed = _pack_entry(
-        ref_read.reshape(-1)[idx].clamp(0, 4).long(),
-        bq.reshape(-1)[idx].long(), mapq[b_of].clamp(0, 127),
-        (strand[b_of] == 1).long(),
-        cycle.reshape(-1)[idx].clamp(0, 1023).long())
-    base_off = (torch.zeros(M, dtype=_i64, device=dev) if marker_base is None
-                else marker_base.long())
-    slot = ranks.long() + base_off[mk_v]
-    ok = slot < pileup_cap
-    pileup = torch.zeros((M + 1) * pileup_cap, dtype=_i64, device=dev)
-    pileup.index_add_(0, torch.where(ok, mk_v * pileup_cap + slot,
-                                     M * pileup_cap), torch.where(ok, packed,
-                                                                  0))
-    acc["pileup"] = pileup[: M * pileup_cap].reshape(M, pileup_cap).to(_i32)
-    acc["pileup_cnt"] = torch.zeros(M, dtype=_i64, device=dev).index_add_(
-        0, mk_v, torch.ones_like(mk_v)).to(_i32)
-    acc["pileup_ovf"] = _count(~ok)
-    acc["n_base_mapped"] = _count(in_reg)
+    marker pileups in read order: the dense kernel, then the pileup kernel
+    (ops/accumulate; their plain versions on the CPU)."""
+    acc = accumulate(tables, n_text, seqs, rseqs, quals, lens, eligible, pos,
+                     strand)
+    n_base = acc.pop("n_base_mapped")
+    acc.update(pileup(tables, n_text, seqs, rseqs, quals, lens, eligible,
+                      pos, strand, mapq, pileup_cap, marker_base))
+    acc["n_base_mapped"] = n_base
     return acc
 
 

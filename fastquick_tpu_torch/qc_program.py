@@ -396,14 +396,17 @@ def mesh_job(mesh, spec: dict) -> dict:
     idx_prefix, fq1, fq2), device, L, bitmaps, pileup_cap, out_dir (rank
     0 writes each run's product files there, prefixed by its name),
     engine ("native": the fill's exact redo is the native engine's, else
-    default_engine's), check_sweeps (hold each pairing sweep of a run to
-    the plain version on its inputs, after the run) and runs, a list of
+    default_engine's), check_kernels (hold each pairing sweep and each
+    accumulate and pileup call of a run to the plain version on its
+    inputs, after the run) and runs, a list of
     dicts: name, kernel, opts (opt_args overrides), fill (run_with_fill,
     else mesh_stats).  Returns this rank's shard index, its world's load
     time, its peak device memory and each run's stats and rows (numpy),
-    stage times, wall time, launches, first-pass fallback, files and the
-    sweeps held ((pairs, k_occ, cnt_chg) each)."""
+    stage times, wall time, launches, first-pass fallback, files, the
+    sweeps held ((pairs, k_occ, cnt_chg) each) and the accumulations held
+    ((kind, B, L, marker_base's largest offset or None) each)."""
     from .kernels import build
+    from .testing.accumulate_cases import check_launches, recorded_launches
     from .testing.pairing_cases import check_sweeps, recorded_sweeps
 
     rank = 0 if mesh is None else mesh.shard_index()
@@ -429,10 +432,14 @@ def mesh_job(mesh, spec: dict) -> dict:
         times: dict = {}
         fb1 = None
         sweeps: list = []
-        record = recorded_sweeps(sweeps) if spec.get("check_sweeps") \
+        accums: list = []
+        check = spec.get("check_kernels")
+        record = recorded_sweeps(sweeps) if check \
+            else contextlib.nullcontext()
+        record_acc = recorded_launches(accums) if check \
             else contextlib.nullcontext()
         t0 = time.perf_counter()
-        with record:
+        with record, record_acc:
             if run.get("fill"):
                 stats, rows, fb1 = run_with_fill(
                     world, engine, spec.get("pileup_cap", 64), run["kernel"],
@@ -446,6 +453,8 @@ def mesh_job(mesh, spec: dict) -> dict:
         wall = time.perf_counter() - t0
         launches = dict(build.launch_counts)
         held = check_sweeps(sweeps, f"rank {rank}, run {run['name']}")
+        acc_held = check_launches(accums, f"rank {rank}, run {run['name']}")
+        del accums
         files = []
         if rank == 0 and spec.get("out_dir"):
             files = write_product(f"{spec['out_dir']}/{run['name']}", stats,
@@ -453,7 +462,7 @@ def mesh_job(mesh, spec: dict) -> dict:
         runs[run["name"]] = dict(
             stats={k: _host(v) for k, v in stats.items()}, rows=rows,
             times=times, wall_s=wall, launches=launches, fallback_first=fb1,
-            files=files, sweeps_held=held)
+            files=files, sweeps_held=held, accumulations_held=acc_held)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
         else None
     return dict(rank=rank, load_s=load_s, peak_bytes=peak, runs=runs,

@@ -70,3 +70,39 @@ def pairing_bound(P: int, n_valid: int, n_rev: int, n_words: int,
     bytes_ = (9 * P + 8 * n_valid + 4 * n_words + 64 * P + 58 * P + 4
               + 4 * pen_len + 4 * 256)
     return bound(bytes_, n_rev * OPS_PAIR_STEP + n_cmp * OPS_PAIR_CMP)
+
+
+# integer operations of one covered base of the accumulation kernels
+# (csrc/accumulate_body.cuh): its pac position and clamps, the region and
+# mismatch tests, the tier and the bins, the index arithmetic
+OPS_ACC_BASE = 20
+
+
+def accumulate_bound(B: int, n_cover: int, n_reg: int, S: int,
+                     elem: int, per_read: int) -> tuple[float, str]:
+    """The least time of the dense accumulation of B reads: each of the
+    n_cover covered bases' site word, each of the n_reg bases in a
+    region's code and quality (elem bytes each), text word and dbSNP
+    flag, per_read bytes a read (position, strand, length and, in the
+    one-program step, the eligible flag), and the output (depth, q20,
+    q30, four 256-bin histograms, n_base_mapped: int32); OPS_ACC_BASE
+    operations a covered base."""
+    bytes_ = (4 * n_cover + n_reg * (2 * elem + 5) + B * per_read
+              + 4 * (3 * S + 4 * 256 + 1))
+    return bound(bytes_, n_cover * OPS_ACC_BASE)
+
+
+def pileup_bound(B: int, n_cover: int, n_on_marker: int, n_entries: int,
+                 n_entry_reads: int, M: int, cap: int,
+                 elem: int) -> tuple[float, str]:
+    """The least time of the marker pileups of B reads without slot
+    offsets: each of the n_cover covered bases' marker word, the site word
+    of the n_on_marker covered bases at a marker, each of the n_entries
+    entries' code and quality (elem bytes each), 17 bytes a read
+    (position, length, eligible), strand and mapq (16 bytes) of the
+    n_entry_reads reads with an entry, and the output (M x cap entries,
+    M counts, the overflow count: int32); OPS_ACC_BASE operations a
+    covered base."""
+    bytes_ = (4 * n_cover + 4 * n_on_marker + 2 * elem * n_entries + 17 * B
+              + 16 * n_entry_reads + 4 * (M * cap + M + 1))
+    return bound(bytes_, n_cover * OPS_ACC_BASE)
