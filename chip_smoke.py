@@ -41,19 +41,29 @@ Phases (any failure raises and the script exits non-zero):
    pairing_sweep_plain in every output field and cnt_chg; pairing_sweep
    makes one launch, which orders, sweeps and finishes every pair: that
    launch timed by CUDA events around it, and the wrapper with its
-   penalty table; the accumulation kernels (testing/accumulate_cases.py)
-   on 200,000 production-shaped reads x 150 over the same text with
-   10,000 markers, some read 100 deep past the pileup cap of 64: the
-   dense kernel equal to accumulate_plain, the pileup kernel equal to
-   pileup_plain with no slot offsets and with random ones, and the dense
-   kernel in DeviceDenseStats' mode on a chunk of 4,096 x 150 uint8 reads
-   equal to dense_accumulate_plain; each launch timed by CUDA events
-   around it, the wrapper and the plain version (the torch ops the
-   kernels replace) too;
+   penalty table; the accumulation kernels (testing/accumulate_cases.py):
+   the edge cases (with "all_markers": a walk block lists more entries
+   than its shared buffer holds), then 200,000 production-shaped reads x
+   150 over the same text with 10,000 markers, some read 100 deep past
+   the pileup cap of 64: accumulate_pileup (the one-program step's one
+   walk of the grid and its order launch, which must be one launch each)
+   equal to accumulate_plain and pileup_plain with no slot offsets and
+   with random ones, accumulate (the walk's sums alone) and pileup (its
+   entries alone, then the order) equal to theirs; a DeviceDenseStats
+   chunk of 4,096 x 150 uint8 reads into fresh and into resident sums
+   equal to dense_accumulate_plain; and DeviceDenseStats itself on the
+   card over three deferred flushes and one drain, the collector's arrays
+   equal to the plain sums of its chunks, one copy to the host.  Each
+   walk and order launch timed by CUDA events around it (the kernels
+   line's accumulate entry: accumulate_pileup's walk and order, its
+   pileup entry: pileup's), the wrappers and the plain versions (the
+   torch ops the kernels replace) too;
 3. small world: the port's ``index`` + ``align --device_qc`` on
    testing/synthworld.build_synth_pe_world, byte-identical on all 12
-   product files to the port's ``align --engine host``, once with the
-   default (resident) search kernel and once with ``FQ_BS_PALLAS=2``;
+   product files to the port's ``align --engine native`` (the CPU tests
+   hold the device path to the reference's align on this world), once
+   with the default (resident) search kernel and once with
+   ``FQ_BS_PALLAS=2``;
 4. production: the world of tools/stress_production_scale.py (10,000
    markers, 100,000 read pairs of 150 bp) from --seed; ``align
    --device_qc`` byte-identical to ``align --engine native``; phase
@@ -63,10 +73,13 @@ Phases (any failure raises and the script exits non-zero):
    for that path).  The default run logs the shapes of its width launches
    (units x codes) and its SW launches (jobs, RL, QL, true cells), and
    both kernels are checked and timed again at those shapes after it, as
-   is its first DeviceDenseStats chunk (the dense accumulation kernel's
-   inputs and output) against the plain version.  The kernel launch
-   counts are zeroed right before each device run and read right after
-   it; each device run must launch the dense accumulation kernel;
+   is its first DeviceDenseStats chunk (the walk's inputs and the
+   resident sums before and after it) against the plain version; the
+   run's dense sites S, the host-clock time inside DeviceDenseStats.flush
+   and its copies to the host (tools/dense_flush_probe.timed_flush), which
+   must be one copy of the sums.  The kernel launch counts are zeroed
+   right before each device run and read right after it; each device run
+   must launch the accumulation walk;
 5. program: the one-program QC step (qc_program, ops/qc_full.qc_step_full)
    in pair mode with drand48 on.  On the small world's files, run_single
    on the card and on the CPU (the plain versions): every accumulator,
@@ -85,10 +98,11 @@ Phases (any failure raises and the script exits non-zero):
    its isize inference, two expansions and sweep by CUDA events around
    them; its pairing kernel launches must equal the sweeps it ran.
    After each run, every drand48 launch, every pairing sweep and every
-   accumulate and pileup launch (first pass and fill pass) it made is
-   held to the plain version on its own inputs (and timed again on
-   them), and the resident run's first-pass search launch to the plain
-   search on 4,096 evenly spaced reads of its chunk.
+   accumulation (accumulate_pileup, first pass and fill pass: one walk
+   of the grid and one order launch each, as the launch counts must
+   show) it made is held to the plain versions on its own inputs (and
+   timed again on them), and the resident run's first-pass search launch
+   to the plain search on 4,096 evenly spaced reads of its chunk.
 
 6. pipeline: the stages after align.  On the small world (phase 3's),
    ``align --device_qc --shard_out`` on each half of its FASTQs by
@@ -122,9 +136,9 @@ Phases (any failure raises and the script exits non-zero):
    product files identical to phase 5's single-device runs (made here
    when phase 5 did not run), every rank equal, each rank's width,
    search (chain 4) or scan and drand48 kernels launched, and each of its
-   pairing sweeps, one launch each, and each of its accumulate and pileup
-   launches (with its marker_base) held to the plain version on its own
-   inputs after its run.  Each rank logs
+   pairing sweeps, one launch each, and each of its accumulations (with
+   its marker_base; a walk and an order launch each) held to the plain
+   versions on its own inputs after its run.  Each rank logs
    its world's load time, stage times (with "exchange": the collectives
    and the merge, waiting for the slowest rank included), whole wall
    time, launches and peak device memory.  Then DeviceLLK sharded over 2
@@ -203,11 +217,13 @@ KERNELS = {
     "pairing": ("fastquick_tpu_torch/csrc/pairing.cu",
                 "fastquick_tpu/ops/pe_device.py:221"),
     # no pallas_call: XLA scatter-adds inside qc_step_full (and the same
-    # sums in align/device_qc.py:70 accum)
+    # sums in align/device_qc.py:70 accum); fq_accum_walk, one walk of the
+    # grid that also lists the pileup entries
     "accumulate": ("fastquick_tpu_torch/csrc/accumulate.cu",
                    "fastquick_tpu/ops/qc_full.py:623"),
     # no pallas_call: a scatter in read order, its ranks from
-    # _pileup_ranks (:227, a stable argsort and an associative_scan)
+    # _pileup_ranks (:227, a stable argsort and an associative_scan);
+    # fq_accum_order over the walk's entry list
     "pileup": ("fastquick_tpu_torch/csrc/accumulate.cu",
                "fastquick_tpu/ops/qc_full.py:666"),
 }
@@ -231,6 +247,7 @@ ACC_READS, ACC_L, ACC_MARKERS, ACC_FLANK, ACC_CAP = 200_000, 150, 10_000, \
     250, 64
 ACC_DEEP = (50, 100)  # markers read deep, reads over each
 DQC_READS, DQC_L = 4096, 150
+DQC_BATCHES = 3  # DeviceDenseStats' batches on the card, a chunk each
 
 
 def log(msg: str) -> None:
@@ -312,8 +329,12 @@ def parse_ptxas(text: str) -> dict:
     cur = None
     for line in text.splitlines():
         if "entry function" in line or "Function properties for" in line:
-            m = re.search(r"(?:function|for) '?\S*?(fq_\w+?_kernel)", line)
-            cur = out.setdefault(m.group(1), {}) if m else None
+            m = re.search(r"(?:function|for) '?\S*?(fq_\w+?_kernel)(\w*)",
+                          line)
+            # a template's instances apart: fq_accum_walk_kernel<1,0> ...
+            t = m and re.findall(r"Lb(\d)E", m.group(2))
+            cur = out.setdefault(m.group(1) + (f"<{','.join(t)}>" if t
+                                               else ""), {}) if m else None
             continue
         if cur is None:
             continue
@@ -830,7 +851,8 @@ def pairing_case(dev, rng, P: int, K: int) -> dict:
                              f"{build.launch_counts['pairing']} launches")
     same_sweep(got, pairing_sweep_plain(*args),
                f"pairing kernel != plain at P={P} K={K}")
-    runs = _launch_ms("fq_pairing_launch", lambda: pairing_sweep(*args))
+    runs = _launches_ms(lambda: pairing_sweep(*args),
+                        {"sweep": "fq_pairing_launch"})["sweep"]
     ms = sum(runs) / len(runs)
     wrapper_ms = cuda_ms(lambda: pairing_sweep(*args), 3)
     table_ms = cuda_ms(lambda: penalty_table(args[7]), 3)
@@ -853,33 +875,6 @@ def pairing_case(dev, rng, P: int, K: int) -> dict:
     return out
 
 
-def _launch_ms(name: str, fn, reps: int = 3) -> list:
-    """The device time (ms) of the one C launch `name` that fn() makes, by
-    CUDA events around it, over reps runs after a warm-up."""
-    import torch
-
-    from fastquick_tpu_torch.kernels import build
-
-    lib = build.cuda_library()
-    launch = getattr(lib, name)
-    ev = []
-
-    def timed(*a):
-        e = (torch.cuda.Event(enable_timing=True),
-             torch.cuda.Event(enable_timing=True))
-        e[0].record()
-        rc = launch(*a)
-        e[1].record()
-        ev.append(e)
-        return rc
-
-    with mock.patch.object(lib, name, timed):
-        for _ in range(reps + 1):
-            fn()
-    torch.cuda.synchronize()
-    return [a.elapsed_time(b) for a, b in ev[1:]]
-
-
 def _marker_bases(tables, n_text: int, t: dict) -> tuple[int, int]:
     """(covered bases at a marker's pac position, reads with a pileup
     entry) of a qc case's tensors: the counts pileup_bound takes."""
@@ -894,16 +889,162 @@ def _marker_bases(tables, n_text: int, t: dict) -> tuple[int, int]:
     return int(on_mk.sum()), int(entry.any(1).sum())
 
 
+# the accumulation's C launches, by the names _launches_ms gives them
+ACC_LAUNCHES = {"walk": "fq_accum_walk_launch",
+                "order": "fq_accum_order_launch"}
+
+
+def _launches_ms(fn, names: dict = ACC_LAUNCHES, reps: int = 3,
+                 warmup: bool = True) -> dict:
+    """The device times (ms) of the C launches of the library that fn()
+    makes, by CUDA events around each, over reps runs (after a warm-up):
+    for each name of `names` (name -> launch function) each run's time,
+    summed over its launches of that kind ([] if none), and "span" (from
+    the first launch's start to the last one's end)."""
+    import torch
+
+    from fastquick_tpu_torch.kernels import build
+
+    lib = build.cuda_library()
+    runs: list = []
+
+    def timed(kind, launch):
+        def run(*a):
+            e = (torch.cuda.Event(enable_timing=True),
+                 torch.cuda.Event(enable_timing=True))
+            e[0].record()
+            rc = launch(*a)
+            e[1].record()
+            runs[-1].append((kind, e))
+            return rc
+        return run
+
+    with contextlib.ExitStack() as stack:
+        for kind, name in names.items():
+            stack.enter_context(mock.patch.object(
+                lib, name, timed(kind, getattr(lib, name))))
+        for _ in range(reps + warmup):
+            runs.append([])
+            fn()
+    torch.cuda.synchronize()
+    out: dict = {k: [] for k in names}
+    out["span"] = []
+    for run in runs[warmup:]:
+        for kind in names:
+            ms = [a.elapsed_time(b) for k, (a, b) in run if k == kind]
+            if ms:
+                out[kind].append(sum(ms))
+        out["span"].append(run[0][1][0].elapsed_time(run[-1][1][1]))
+    return out
+
+
+def _mean(x: list) -> float:
+    return sum(x) / len(x)
+
+
+def _device_stats_run(dev, rng, text, mpos, tables) -> dict:
+    """align --device_qc's DeviceDenseStats on the card over DQC_BATCHES
+    batches of reads (ref_case, DQC_L), each flush deferred as the driver
+    defers it at a batch end, then one drain: the collector's arrays equal
+    to the plain sums of every chunk, DQC_BATCHES chunks walked into the
+    resident sums, one copy to the host; each chunk's walk timed by CUDA
+    events around it."""
+    import numpy as np
+    import torch
+    from types import SimpleNamespace
+
+    from fastquick_tpu_torch.align import device_qc
+    from fastquick_tpu_torch.kernels import build
+    from fastquick_tpu_torch.ops import accumulate as acc
+    from fastquick_tpu_torch.testing import accumulate_cases as ac
+    from tools.dense_flush_probe import timed_flush
+
+    S = tables.n_sites
+    coll = SimpleNamespace(
+        sites=SimpleNamespace(**{k: np.zeros(S, np.int64)
+                                 for k in ("depth", "q20", "q30")}),
+        **{k: np.zeros(256, np.int64) for k in (
+            "emp_rep_dist", "emp_cycle_dist", "mis_emp_rep_dist",
+            "mis_emp_cycle_dist")})
+    want = torch.zeros(acc.dense_size(S), dtype=torch.int64, device=dev)
+    with mock.patch.object(device_qc, "build_site_tables",
+                           lambda *a: tables):
+        stats = device_qc.DeviceDenseStats(
+            SimpleNamespace(l_pac=len(text)), None, None, dev)
+    coll.dense_device = stats
+    coll.flush_dense = lambda: stats.flush(coll)
+    deferred: dict = {}
+    drain: dict = {}
+    build.reset_launch_counts()
+    walks = []
+    with timed_flush(device_qc, deferred):
+        for _ in range(DQC_BATCHES):
+            c = ac.ref_case(rng, text, mpos, DQC_READS, DQC_L, wrap=0.01)
+            for r in range(DQC_READS):
+                ln = int(c["lens"][r])
+                codes, chars = c["codes"][r, :ln], c["quals"][r, :ln] + 33
+                if c["strand"][r]:
+                    codes = np.where(codes < 4, 3 - codes, 4)[::-1]
+                    chars = chars[::-1]
+                stats.add(SimpleNamespace(
+                    pos=int(c["pos"][r]), strand=int(c["strand"][r]),
+                    len=ln, seq=codes.astype(np.uint8),
+                    qual=chars.astype(np.uint8)))
+            t = {k: torch.from_numpy(np.asarray(v)).to(dev)
+                 for k, v in c.items()}
+            want += acc.pack_dense_plain(acc.dense_accumulate_plain(
+                tables, len(text), t["pos"], t["strand"], t["codes"],
+                t["quals"], t["lens"]), S)
+            walks += _launches_ms(lambda: device_qc.flush_batch(coll),
+                                  reps=1, warmup=False)["walk"]
+    if deferred["copies"] or any(a.any() for a in (coll.sites.depth,
+                                                   coll.emp_rep_dist)):
+        raise AssertionError("DeviceDenseStats drained inside a deferred "
+                             "flush")
+    with timed_flush(device_qc, drain):
+        coll.flush_dense()
+    got = acc.unpack_dense(want.cpu().numpy(), S)
+    for name, arr in (("depth", coll.sites.depth), ("q20", coll.sites.q20),
+                      ("q30", coll.sites.q30),
+                      ("emp_rep", coll.emp_rep_dist),
+                      ("emp_cycle", coll.emp_cycle_dist),
+                      ("mis_emp_rep", coll.mis_emp_rep_dist),
+                      ("mis_emp_cycle", coll.mis_emp_cycle_dist)):
+        if not np.array_equal(arr, got[name]):
+            raise AssertionError(f"DeviceDenseStats on the card: {name} != "
+                                 "the plain sums of its chunks")
+    if (stats.drains, drain["copies"], build.launch_counts["accumulate"]) \
+            != (1, 1, DQC_BATCHES):
+        raise AssertionError(f"DeviceDenseStats on the card: {stats.drains} "
+                             f"drains, {drain['copies']} copies, launches "
+                             f"{build.launch_counts}")
+    out = dict(batches=DQC_BATCHES, walk_ms=walks,
+               deferred_flush_s=deferred["flush_s"], drain_s=drain["flush_s"],
+               bytes_to_host=drain["bytes_to_host"], sites=S)
+    log(f"DeviceDenseStats on the card: {DQC_BATCHES} batches of "
+        f"{DQC_READS} x {DQC_L}, each flush deferred (a walk into the "
+        f"resident sums: {', '.join(f'{x:.4f}' for x in walks)} ms; "
+        f"{deferred['flush_s']:.4f}s inside them, host clock, no copy), "
+        f"then one drain ({drain['flush_s']:.4f}s, "
+        f"{drain['bytes_to_host']} bytes to the host): the collector's "
+        "arrays equal to the plain sums of every chunk")
+    return out
+
+
 def accumulate_case(dev, rng, text) -> dict:
     """The accumulation kernels against their plain versions: ACC_READS
     production-shaped reads x ACC_L over `text` with ACC_MARKERS markers
     (testing/accumulate_cases.qc_case: both strands, ragged, some past the
-    text's end, ACC_DEEP reads over a few markers past the cap), the dense
-    kernel, and the pileup kernel without and with random slot offsets;
-    then a DeviceDenseStats chunk of DQC_READS x DQC_L (uint8, quality
-    characters that wrap).  Every output equal; each launch timed by CUDA
-    events around it, the wrapper and the plain version (the torch ops the
-    kernels replace) too; the bounds from this run's inputs."""
+    text's end, ACC_DEEP reads over a few markers past the cap), the
+    one-program step's one walk and order (accumulate_pileup) without and
+    with random slot offsets, the dense sums alone (accumulate) and the
+    pileups alone (pileup, its walk reading the marker word first); then a
+    DeviceDenseStats chunk of DQC_READS x DQC_L (uint8, quality characters
+    that wrap) into fresh and into resident sums, and DeviceDenseStats
+    itself over DQC_BATCHES deferred flushes and one drain.  Every output
+    equal; each launch timed by CUDA events around it, the wrappers and
+    the plain versions (the torch ops the kernels replace) too; the
+    bounds from this run's inputs."""
     import numpy as np
     import torch
 
@@ -914,6 +1055,7 @@ def accumulate_case(dev, rng, text) -> dict:
     from fastquick_tpu_torch.utils.bounds import (
         accumulate_bound,
         pileup_bound,
+        walk_bound,
     )
 
     def put(case):
@@ -921,31 +1063,48 @@ def accumulate_case(dev, rng, text) -> dict:
             np.asarray(v)).to(dev) for k, v in case.items()
             if k != "pileup_cap"}
 
-    for name in (*ac.QC_EDGE, "marker_at_zero"):
-        spec, etext, case = ac.edge_case(name)
-        tab = ac.edge_tables(name, spec, etext, dev)
+    def step_plain(tab, n, planes, mapq, cap, mb):
+        return acc.step_outputs(acc.accumulate_plain(tab, n, *planes),
+                                 acc.pileup_plain(tab, n, *planes, mapq,
+                                                  cap, mb))
+
+    # all_markers: "mixed" with a marker at every site, so that a walk
+    # block lists more entries than its shared buffer holds
+    for name in (*ac.QC_EDGE, "marker_at_zero", "all_markers"):
+        base = "mixed" if name == "all_markers" else name
+        spec, etext, case = ac.edge_case(base)
+        tab = ac.edge_tables(base, spec, etext, dev)
+        if name == "all_markers":
+            ac.mark_every_site(tab)
         t = put(case)
         ep = [t[k] for k in ("seqs", "rseqs", "quals", "lens", "eligible",
                              "pos", "strand")]
+        tail = (t["mapq"], case["pileup_cap"], t["marker_base"])
+        ac.same_outputs(acc.accumulate_pileup(tab, len(etext), *ep, *tail),
+                        step_plain(tab, len(etext), ep, *tail),
+                        f"accumulate_pileup kernels != plain ({name})")
         ac.same_outputs(acc.accumulate(tab, len(etext), *ep),
                         acc.accumulate_plain(tab, len(etext), *ep),
                         f"accumulate kernel != plain ({name})")
-        tail = (t["mapq"], case["pileup_cap"], t["marker_base"])
         ac.same_outputs(acc.pileup(tab, len(etext), *ep, *tail),
                         acc.pileup_plain(tab, len(etext), *ep, *tail),
-                        f"pileup kernel != plain ({name})")
+                        f"pileup kernels != plain ({name})")
     for name in ac.REF_EDGE:
         spec, etext, case = ac.edge_case(name, ref=True)
         tab = ac.edge_tables(name, spec, etext, dev)
         t = put(case)
         args = (tab, len(etext), t["pos"], t["strand"], t["codes"],
                 t["quals"], t["lens"])
-        if not torch.equal(acc.dense_accumulate(*args), acc.pack_dense_plain(
-                acc.dense_accumulate_plain(*args), tab.n_sites)):
-            raise AssertionError(f"dense kernel != plain ({name})")
-    log(f"accumulate edge cases ({', '.join(ac.QC_EDGE)}, marker_at_zero; "
-        f"DeviceDenseStats {', '.join(ac.REF_EDGE)}): dense and pileup "
-        "kernels equal to plain")
+        want = acc.pack_dense_plain(acc.dense_accumulate_plain(*args),
+                                    tab.n_sites)
+        sums = acc.dense_accumulate(*args)
+        if not torch.equal(sums, want) or not torch.equal(
+                acc.dense_accumulate(*args, out=sums), 2 * want):
+            raise AssertionError(f"dense walk != plain ({name})")
+    log(f"accumulate edge cases ({', '.join(ac.QC_EDGE)}, marker_at_zero, "
+        f"all_markers; "
+        f"DeviceDenseStats {', '.join(ac.REF_EDGE)}, fresh and resident "
+        "sums): the walk and order kernels equal to plain in every mode")
 
     t0 = time.perf_counter()
     n_text = len(text)
@@ -965,19 +1124,31 @@ def accumulate_case(dev, rng, text) -> dict:
         f"{time.perf_counter() - t0:.1f}s")
 
     build.reset_launch_counts()
-    got = acc.accumulate(tables, n_text, *planes)
-    want = acc.accumulate_plain(tables, n_text, *planes)
-    ac.same_outputs(got, want, "accumulate kernel != plain")
-    piles = {}
+    steps = {}
     for what, base in (("no offsets", None), ("slot offsets", mb)):
-        pg = acc.pileup(tables, n_text, *planes, mapq, ACC_CAP, base)
-        pw = acc.pileup_plain(tables, n_text, *planes, mapq, ACC_CAP, base)
-        ac.same_outputs(pg, pw, f"pileup kernel != plain ({what})")
-        piles[what] = pw
+        got = acc.accumulate_pileup(tables, n_text, *planes, mapq, ACC_CAP,
+                                    base)
+        steps[what] = step_plain(tables, n_text, planes, mapq, ACC_CAP, base)
+        ac.same_outputs(got, steps[what],
+                        f"accumulate_pileup kernels != plain ({what})")
     if (build.launch_counts["accumulate"], build.launch_counts["pileup"]) \
-            != (1, 2):
-        raise AssertionError(f"accumulate case launched "
-                             f"{build.launch_counts}")
+            != (2, 2):
+        raise AssertionError(f"accumulate_pileup launched "
+                             f"{build.launch_counts}: not one walk and one "
+                             "order a call")
+    ac.same_outputs(acc.accumulate(tables, n_text, *planes),
+                    acc.accumulate_plain(tables, n_text, *planes),
+                    "accumulate kernel != plain")
+    for what, base in (("no offsets", None), ("slot offsets", mb)):
+        ac.same_outputs(acc.pileup(tables, n_text, *planes, mapq, ACC_CAP,
+                                   base),
+                        acc.pileup_plain(tables, n_text, *planes, mapq,
+                                         ACC_CAP, base),
+                        f"pileup kernels != plain ({what})")
+
+    def step():
+        return acc.accumulate_pileup(tables, n_text, *planes, mapq, ACC_CAP,
+                                     None)
 
     def dense():
         return acc.accumulate(tables, n_text, *planes)
@@ -985,71 +1156,103 @@ def accumulate_case(dev, rng, text) -> dict:
     def pile():
         return acc.pileup(tables, n_text, *planes, mapq, ACC_CAP, None)
 
-    d_runs = _launch_ms("fq_accum_dense_launch", dense)
-    p_runs = _launch_ms("fq_accum_pileup_launch", pile)
+    t_step, t_dense, t_pile = (_launches_ms(f) for f in (step, dense,
+                                                              pile))
+    want = steps["no offsets"]
     lens = t["lens"].clamp(0, ACC_L)
     n_cover = int(torch.where(t["eligible"], lens, 0).sum())
     n_reg = int(want["n_base_mapped"])
-    n_entries = int(piles["no offsets"]["pileup_cnt"].long().sum())
+    n_entries = int(want["pileup_cnt"].long().sum())
     n_on_marker, n_entry_reads = _marker_bases(tables, n_text, t)
+    counts = dict(reads=ACC_READS, L=ACC_L, covered=n_cover, in_region=n_reg,
+                  entries=n_entries, on_marker=n_on_marker,
+                  entry_reads=n_entry_reads, sites=S,
+                  deepest=int(want["pileup_cnt"].max()),
+                  overflow={k: int(v["pileup_ovf"]) for k, v in steps.items()})
     res = {}
-    bms, by = accumulate_bound(ACC_READS, n_cover, n_reg, S, 4, 25)
+    bms, by = walk_bound(ACC_READS, n_cover, n_reg, n_entry_reads, S, M,
+                         ACC_CAP, 4, 25)
     res["accumulate"] = dict(
-        ms=sum(d_runs) / len(d_runs), runs=d_runs,
-        wrapper_ms=cuda_ms(dense, 3), max_abs_err=0,
+        ms=_mean(t_step["span"]), runs=t_step["span"], walk=t_step["walk"],
+        order=t_step["order"], wrapper_ms=cuda_ms(step, 3), max_abs_err=0,
+        plain_ms=cuda_ms(lambda: step_plain(tables, n_text, planes, mapq,
+                                            ACC_CAP, None), 1),
+        bound_ms=bms, bound_by=by, **counts)
+    bms, by = accumulate_bound(ACC_READS, n_cover, n_reg, S, 4, 25)
+    res["accumulate"]["dense_only"] = dict(
+        ms=_mean(t_dense["walk"]), runs=t_dense["walk"],
         plain_ms=cuda_ms(lambda: acc.accumulate_plain(tables, n_text,
                                                        *planes), 1),
-        bound_ms=bms, bound_by=by, reads=ACC_READS, L=ACC_L, covered=n_cover,
-        in_region=n_reg, sites=S)
+        bound_ms=bms, bound_by=by)
     bms, by = pileup_bound(ACC_READS, n_cover, n_on_marker, n_entries,
                            n_entry_reads, M, ACC_CAP, 4)
-    ovf = {k: int(v["pileup_ovf"]) for k, v in piles.items()}
     res["pileup"] = dict(
-        ms=sum(p_runs) / len(p_runs), runs=p_runs, wrapper_ms=cuda_ms(pile, 3),
-        max_abs_err=0,
+        ms=_mean(t_pile["span"]), runs=t_pile["span"], walk=t_pile["walk"],
+        order=t_pile["order"], wrapper_ms=cuda_ms(pile, 3), max_abs_err=0,
         plain_ms=cuda_ms(lambda: acc.pileup_plain(
             tables, n_text, *planes, mapq, ACC_CAP, None), 1),
-        bound_ms=bms, bound_by=by, entries=n_entries,
-        on_marker=n_on_marker, entry_reads=n_entry_reads,
-        deepest=int(piles["no offsets"]["pileup_cnt"].max()), overflow=ovf)
-    for name in ("accumulate", "pileup"):
-        r = res[name]
-        log(f"{name} N={ACC_READS} L={ACC_L}: kernel {r['ms']:.4f} ms (runs "
-            f"{', '.join(f'{x:.4f}' for x in r['runs'])}), wrapper "
-            f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
-            f"{r['bound_ms']:.5f} ms ({r['bound_by']}); equal")
+        bound_ms=bms, bound_by=by, **counts)
+
+    def runs(x):
+        return ", ".join(f"{v:.4f}" for v in x)
+
+    r = res["accumulate"]
+    log(f"accumulate N={ACC_READS} L={ACC_L} (accumulate_pileup: one walk "
+        f"and one order launch): {r['ms']:.4f} ms from the walk's start to "
+        f"the order's end (runs {runs(r['runs'])}; walk "
+        f"{runs(r['walk'])}, order {runs(r['order'])}), wrapper "
+        f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+        f"{r['bound_ms']:.5f} ms ({r['bound_by']}); equal")
+    d = r["dense_only"]
+    log(f"accumulate N={ACC_READS} L={ACC_L} (accumulate: the walk's dense "
+        f"sums alone): {d['ms']:.4f} ms (runs {runs(d['runs'])}), plain "
+        f"{d['plain_ms']:.3f} ms, bound {d['bound_ms']:.5f} ms "
+        f"({d['bound_by']}); equal")
+    p = res["pileup"]
+    log(f"pileup N={ACC_READS} L={ACC_L} (pileup: the walk's entries alone "
+        f"and the order): {p['ms']:.4f} ms (runs {runs(p['runs'])}; walk "
+        f"{runs(p['walk'])}, order {runs(p['order'])}), wrapper "
+        f"{p['wrapper_ms']:.4f} ms, plain {p['plain_ms']:.3f} ms, bound "
+        f"{p['bound_ms']:.5f} ms ({p['bound_by']}); equal")
     log(f"accumulate case: {n_cover} covered bases, {n_reg} in regions, "
         f"{n_on_marker} at a marker; {n_entries} pileup entries from "
-        f"{n_entry_reads} reads, deepest marker "
-        f"{res['pileup']['deepest']}, past the cap {ovf}; one dense and "
-        "two pileup launches, every output equal")
+        f"{n_entry_reads} reads, deepest marker {counts['deepest']}, past "
+        f"the cap {counts['overflow']}; every output equal")
 
     # a DeviceDenseStats chunk: uint8 planes in reference orientation
     rc = ac.ref_case(rng, text, mpos, DQC_READS, DQC_L, wrap=0.01)
     r = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in rc.items()}
     args = (tables, n_text, r["pos"], r["strand"], r["codes"], r["quals"],
             r["lens"])
-    got = acc.dense_accumulate(*args)
     want = acc.pack_dense_plain(acc.dense_accumulate_plain(*args), S)
+    got = acc.dense_accumulate(*args)
     if not torch.equal(got, want):
         bad = (got != want).nonzero()[:5].flatten().tolist()
-        raise AssertionError(f"dense kernel != plain (DeviceDenseStats "
+        raise AssertionError(f"dense walk != plain (DeviceDenseStats "
                              f"chunk) at {bad}")
-    q_runs = _launch_ms("fq_accum_dense_launch",
-                        lambda: acc.dense_accumulate(*args))
+    sums = torch.zeros_like(got)
+    q_res = _launches_ms(lambda: acc.dense_accumulate(*args, out=sums))
+    q_new = _launches_ms(lambda: acc.dense_accumulate(*args))
     n_cover = int(r["lens"].clamp(0, DQC_L).sum())
     n_reg = int(acc.unpack_dense(want, S)["n_base_mapped"])
-    bms, by = accumulate_bound(DQC_READS, n_cover, n_reg, S, 1, 24)
+    bms, by = accumulate_bound(DQC_READS, n_cover, n_reg, S, 1, 24,
+                               output=False)
+    old_bms, _ = accumulate_bound(DQC_READS, n_cover, n_reg, S, 1, 24)
     res["accumulate"]["device_qc"] = dq = dict(
-        ms=sum(q_runs) / len(q_runs), runs=q_runs,
-        wrapper_ms=cuda_ms(lambda: acc.dense_accumulate(*args), 3),
+        ms=_mean(q_res["walk"]), runs=q_res["walk"],
+        fresh_ms=_mean(q_new["walk"]),
+        wrapper_ms=cuda_ms(lambda: acc.dense_accumulate(*args, out=sums), 3),
         plain_ms=cuda_ms(lambda: acc.dense_accumulate_plain(*args), 1),
-        bound_ms=bms, bound_by=by, reads=DQC_READS, L=DQC_L,
-        covered=n_cover, in_region=n_reg)
+        bound_ms=bms, bound_by=by, bound_with_output_ms=old_bms,
+        reads=DQC_READS, L=DQC_L, covered=n_cover, in_region=n_reg)
     log(f"accumulate N={DQC_READS} L={DQC_L} (DeviceDenseStats chunk, "
-        f"uint8): kernel {dq['ms']:.4f} ms, wrapper {dq['wrapper_ms']:.4f} "
-        f"ms, plain {dq['plain_ms']:.3f} ms, bound {bms:.5f} ms ({by}); "
-        "equal")
+        f"uint8): the walk into resident sums {dq['ms']:.4f} ms (runs "
+        f"{runs(dq['runs'])}), into fresh sums (zeroed: the launch's "
+        f"memset) {dq['fresh_ms']:.4f} ms, wrapper {dq['wrapper_ms']:.4f} "
+        f"ms, plain {dq['plain_ms']:.3f} ms, bound {bms:.5f} ms ({by}; with "
+        f"the output {old_bms:.5f}); equal")
+    res["accumulate"]["device_stats"] = _device_stats_run(dev, rng, text,
+                                                          mpos, tables)
     return res
 
 
@@ -1125,23 +1328,28 @@ def _device_run(argv: list[str], logf, kernel: str,
                 calls: dict | None = None) -> tuple[dict, dict]:
     """One ``align --device_qc`` run with the launch counts zeroed just
     before it; returns its stats and its launch counts (it raises unless
-    its search kernel and the dense accumulation kernel launched).  If
+    its search kernel and the dense accumulation walk launched).  If
     calls is a dict, the inputs of each SW and width kernel launch are
-    appended to its lists "sw" and "width", and the first DeviceDenseStats
-    chunk's inputs and output to "dense"."""
+    appended to its lists "sw" and "width", the first DeviceDenseStats
+    chunk's inputs and its resident sums before and after it to "dense",
+    and its flushes are counted into calls["flush"] (tools/
+    dense_flush_probe.timed_flush)."""
     from fastquick_tpu_torch.align import device_qc
     from fastquick_tpu_torch.kernels import build
     from fastquick_tpu_torch.ops import batch_search, sw_kernels
+    from tools.dense_flush_probe import timed_flush
 
     launch_sw = sw_kernels.sw_forward_batch
     launch_width = batch_search.width
     launch_dense = device_qc.dense_accumulate
 
-    def record_dense(*args):
-        out = launch_dense(*args)
-        if not calls["dense"]:
+    def record_dense(*args, out):
+        first = not calls["dense"]
+        before = out.clone() if first else None
+        launch_dense(*args, out=out)
+        if first:
             calls["dense"].append(([a.clone() if hasattr(a, "clone") else a
-                                    for a in args], out.clone()))
+                                    for a in args], before, out.clone()))
         return out
 
     def record_sw(*args):
@@ -1161,7 +1369,9 @@ def _device_run(argv: list[str], logf, kernel: str,
             mock.patch.object(batch_search, "width",
                               record_width if rec else launch_width), \
             mock.patch.object(device_qc, "dense_accumulate",
-                              record_dense if rec else launch_dense):
+                              record_dense if rec else launch_dense), \
+            (timed_flush(device_qc, calls.setdefault("flush", {})) if rec
+             else contextlib.nullcontext()):
         st = _align(argv + ["--device_qc"], logf)
     launches = dict(build.launch_counts)
     # the resident kernel counts its launches as "search"
@@ -1173,29 +1383,42 @@ def _device_run(argv: list[str], logf, kernel: str,
     return st, launches
 
 
-def _check_dense_chunk(recorded: list, n_launches: int) -> dict:
+def _check_dense_chunk(recorded: list, n_launches: int,
+                       flushes: dict) -> dict:
     """The production align's first DeviceDenseStats chunk (its recorded
-    inputs and output) against the plain version, the kernel timed again
-    on it."""
+    inputs and resident sums before and after it) against the plain
+    version, the walk timed again on it adding into resident sums; and
+    its flushes: S, the host-clock time inside them, the copies to the
+    host and their bytes (one drain: the sums' 4 (3 S + 1,025) bytes)."""
     import torch
 
     from fastquick_tpu_torch.ops import accumulate as acc
 
     if not recorded:
         raise AssertionError("production align: no DeviceDenseStats chunk")
-    args, got = recorded[0]
-    want = acc.pack_dense_plain(acc.dense_accumulate_plain(*args),
-                                args[0].n_sites)
+    args, before, got = recorded[0]
+    S = args[0].n_sites
+    want = before + acc.pack_dense_plain(acc.dense_accumulate_plain(*args), S)
     if not torch.equal(got, want):
         bad = (got != want).nonzero()[:5].flatten().tolist()
         raise AssertionError(f"production DeviceDenseStats chunk != plain "
                              f"at {bad}")
+    if flushes["copies"] != 1 or \
+            flushes["bytes_to_host"] != 4 * acc.dense_size(S):
+        raise AssertionError(f"production align: the dense sums went to the "
+                             f"host {flushes['copies']} times "
+                             f"({flushes['bytes_to_host']} bytes), not once")
     B, L = args[4].shape
-    out = dict(reads=B, L=L, launches=n_launches,
-               ms=cuda_ms(lambda: acc.dense_accumulate(*args), 3))
-    log(f"production align: {n_launches} dense accumulation launches; its "
+    sums = torch.zeros_like(got)
+    out = dict(reads=B, L=L, launches=n_launches, flushes=flushes,
+               ms=cuda_ms(lambda: acc.dense_accumulate(*args, out=sums), 3))
+    log(f"production align: {n_launches} dense accumulation walks; its "
         f"first DeviceDenseStats chunk ({B} reads x {L}) equal to plain, "
-        f"dense_accumulate {out['ms']:.4f} ms")
+        f"dense_accumulate into the resident sums {out['ms']:.4f} ms; S "
+        f"{flushes['S']} dense sites, {flushes['flushes']} flushes, "
+        f"{flushes['flush_s']:.4f}s inside them (host clock), "
+        f"{flushes['copies']} copy to the host of "
+        f"{flushes['bytes_to_host']} bytes")
     return out
 
 
@@ -1214,21 +1437,24 @@ def phase_small(work: Path, logf) -> dict:
               "--index_prefix", w["idx_prefix"]]
     dev, launches = _device_run(common + ["--out_prefix", str(d / "dev")],
                                 logf, "resident")
-    host = _align(common + ["--out_prefix", str(d / "host"),
-                            "--engine", "host"], logf)
-    same_products(str(d / "host"), str(d / "dev"))
-    log(f"small world: device {dev['wall_s']:.1f}s vs host "
-        f"{host['wall_s']:.1f}s, 12 product files byte-identical; "
+    # the native engine, not the ~100 s host engine: the CPU tests hold
+    # the device path to the reference's align on this world
+    # (tests/test_torch_align_e2e.py)
+    nat = _align(common + ["--out_prefix", str(d / "nat"),
+                           "--engine", "native"], logf)
+    same_products(str(d / "nat"), str(d / "dev"))
+    log(f"small world: device {dev['wall_s']:.1f}s vs native "
+        f"{nat['wall_s']:.1f}s, 12 product files byte-identical; "
         f"launches {launches}; fallback {dev['fallback']}/"
         f"{dev['searched']} {dev['fb_causes']}")
     scan, scan_launches = _device_run(
         common + ["--out_prefix", str(d / "scan")], logf, "scan")
-    same_products(str(d / "host"), str(d / "scan"))
+    same_products(str(d / "nat"), str(d / "scan"))
     log(f"small world, scan kernel: device {scan['wall_s']:.1f}s, 12 "
-        f"product files byte-identical to host; {scan['rounds']} rounds, "
+        f"product files byte-identical to native; {scan['rounds']} rounds, "
         f"launches {scan_launches}; fallback {scan['fallback']}/"
         f"{scan['searched']} {scan['fb_causes']}")
-    return dict(reads=w["n_reads"], device=dev, host=host,
+    return dict(reads=w["n_reads"], device=dev, native=nat,
                 launches=launches, scan=dict(device=scan,
                                              launches=scan_launches),
                 world=w)
@@ -1293,7 +1519,8 @@ def phase_production(work: Path, logf, seed: int, pairs: int,
         log(f"production SW {sw_shapes[-1]['launch']} launch: {B} jobs, RL "
             f"{RL}, QL {QL}, {cells} true cells ({share:.1%} of the "
             f"padded); kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, equal")
-    dense_chunk = _check_dense_chunk(calls["dense"], launches["accumulate"])
+    dense_chunk = _check_dense_chunk(calls["dense"], launches["accumulate"],
+                                     calls["flush"])
     del calls
 
     scan, scan_launches = _device_run(
@@ -1498,28 +1725,30 @@ def _check_draws(draws: list, name: str) -> list:
 
 
 def _check_accumulates(calls: list, launches: dict, name: str) -> list:
-    """Each recorded accumulate and pileup launch of a production run (the
-    first pass's and the fill pass's) against the plain version on its
-    own inputs, every output equal; the wrapper timed again on them.
-    Raises unless the launches counted are the calls recorded."""
+    """Each recorded accumulation of a production run (the first pass's
+    and the fill pass's accumulate_pileup) against the plain versions on
+    its own inputs, every output equal; the wrapper timed again on them.
+    Raises unless each made one walk of the grid and one order launch:
+    the walk and order launches counted both equal the calls recorded."""
     from fastquick_tpu_torch.ops import accumulate as acc
     from fastquick_tpu_torch.testing.accumulate_cases import check_launches
 
-    n = {k: sum(c[0] == k for c in calls) for k in ("accumulate", "pileup")}
-    if any(not v or launches[k] != v for k, v in n.items()):
-        raise AssertionError(f"production {name}: recorded {n}, launched "
-                             f"{launches}")
+    n = len(calls)
+    if not n or launches["accumulate"] != n or launches["pileup"] != n:
+        raise AssertionError(f"production {name}: {n} accumulations "
+                             f"recorded, launched {launches}")
     t0 = time.perf_counter()
     held = check_launches(calls, f"production {name}")
     plain_s = time.perf_counter() - t0
-    fns = {"accumulate": acc.accumulate, "pileup": acc.pileup}
-    out = [dict(kind=kind, reads=B, L=L, marker_base=mb,
-                ms=cuda_ms(lambda: fns[kind](*args), 3))
-           for (kind, B, L, mb), (_, args, _) in zip(held, calls)]
-    log(f"program production, {name}: its {n['accumulate']} accumulate and "
-        f"{n['pileup']} pileup launches equal to plain in every output ("
-        + ", ".join(f"{c['kind']} {c['reads']} x {c['L']}, marker_base "
-                    f"{c['marker_base']}, {c['ms']:.4f} ms" for c in out)
+    out = [dict(reads=B, L=L, marker_base=mb,
+                ms=cuda_ms(lambda: acc.accumulate_pileup(*args), 3))
+           for (B, L, mb), (args, _) in zip(held, calls)]
+    log(f"program production, {name}: its {n} accumulations, one walk of "
+        f"the (B, L) grid and one order launch each ({launches['accumulate']}"
+        f" walk and {launches['pileup']} order launches), equal to plain in "
+        "every output (" + ", ".join(
+            f"{c['reads']} x {c['L']}, marker_base {c['marker_base']}, "
+            f"{c['ms']:.4f} ms" for c in out)
         + f"; plain {plain_s:.2f}s all)")
     return out
 
@@ -2201,20 +2430,21 @@ def phase_mesh(work: Path, logf, seed: int, pairs: int,
                                      f"to plain, {x['launches']['pairing']} "
                                      "pairing launches")
             acc_held = x["accumulations_held"]
-            n_acc = {k: sum(h[0] == k for h in acc_held)
-                     for k in ("accumulate", "pileup")}
-            if not all(n_acc.values()) or (dev == "cuda" and any(
-                    x["launches"][k] != v for k, v in n_acc.items())):
+            # each accumulation on the card: one walk, one order launch
+            if dev == "cuda" and (not acc_held or any(
+                    x["launches"][k] != len(acc_held)
+                    for k in ("accumulate", "pileup"))):
                 raise AssertionError(f"mesh production {name}, rank "
-                                     f"{r['rank']}: accumulations held "
-                                     f"{n_acc}, launches {x['launches']}")
+                                     f"{r['rank']}: {len(acc_held)} "
+                                     f"accumulations held, launches "
+                                     f"{x['launches']}")
             log(f"mesh production, {name} kernel, {_rank_line(r, name)}; "
                 f"first pass {x['fallback_first']} fallback reads; its "
                 f"{len(held)} pairing sweeps ((pairs, k_occ, cnt_chg): "
                 f"{held}) equal to plain in every output and cnt_chg; its "
-                f"{n_acc['accumulate']} accumulate and {n_acc['pileup']} "
-                f"pileup launches ((kind, B, L, marker_base's largest "
-                f"offset): {acc_held}) equal to plain in every output")
+                f"{len(acc_held)} accumulations, a walk of the grid and an "
+                f"order launch each ((B, L, marker_base's largest offset): "
+                f"{acc_held}), equal to plain in every output")
         qp.same_run((a["stats"], a["rows"]), (b["stats"], b["rows"]),
                     f"mesh production {name}: rank 1 against rank 0")
         # n_reads counts padding rows; the production batch has none, but

@@ -33,6 +33,7 @@ from ..stats.collector import FileStat, StatCollector
 from ..utils.logging import error, notice, realtime
 from . import pe as _pe_mod
 from .core import bwa_aln2seq_core, bwa_approx_mapQ
+from .device_qc import flush_batch
 from .engine import HostEngine
 from .opts import (
     BWA_MODE_GAPE,
@@ -404,7 +405,7 @@ class PairEndMapper:
             if self.sam is not None:
                 self.sam.write_pair(idx, p[0], p[1], opt)
         fsc.num_read += 2 * n
-        self.collector.flush_dense()
+        flush_batch(self.collector)
         self._tick("stats+out", t0)
 
     def _refine_gapped(self, reads: list[Read]) -> None:
@@ -491,7 +492,7 @@ class SingleEndMapper(PairEndMapper):
                 if self.sam is not None:
                     self.sam.write_pair(self.idx, p, None, opt)
             fsc.num_read += len(batch)
-            self.collector.flush_dense()
+            flush_batch(self.collector)
             th.join()
             batch = nxt[0]
         reader.close()

@@ -1,9 +1,10 @@
-// The per-base body of the accumulation kernels (accumulate.cu): for one
-// base (b, j) of a batch, where it falls in the pac text, whether it lies
-// on a dense site, its base and quality in reference orientation, its
-// cycle, its quality tier and bins, whether it is a mismatch, and the
-// packed pileup entry of a base on a marker.  nvcc builds it into the
-// kernels, g++ into the host library (host_kernels.cpp) for the CPU tests.
+// The per-read and per-base body of the accumulation kernels
+// (accumulate.cu): a read's fields, loaded once for all its bases; for one
+// base j of it, where it falls in the pac text, whether it lies on a dense
+// site, its base, quality and reference base, its cycle, its quality tier
+// and bins, whether it is a mismatch, and the packed pileup entry of a
+// base on a marker.  nvcc builds it into the kernels, g++ into the host
+// library (host_kernels.cpp) for the CPU tests.
 //
 // Two callers, one body (FqAccIn.mode):
 // - FQ_ACC_READ (ops/qc_full.qc_step_full): int32 planes in read
@@ -70,89 +71,122 @@ static inline FqAccIn fq_acc_in(FQ_ACC_IN_ARGS) {
   return a;
 }
 
-// One base on a dense site.
+// One read of a batch, loaded once for all its bases; 32-bit from here
+// on (ops/accumulate.acc_call holds B L and n_text + L below 2^31).
+struct FqAccRow {
+  int pos;           // its pac position, clamped to [-L, n_text + 1]
+  int len;           // its length, at most 2 L + 1,024
+  int row;           // b * L: the flat index of its base 0
+  int n;             // its bases in the grid: min(len, L) (> 0)
+  int rev;           // strand 1
+  const void* code;  // its codes' row (FQ_ACC_READ: its strand's plane)
+  const void* qual;  // its qualities' row
+};
+
+// Read b's fields; false when it has no base to count (not eligible, or
+// no length).  The clamps of pos and len change no base's pac position,
+// slot, cycle or bin: a base's pac is clamped to [0, n_text], its
+// len - 1 - j (j < L) to at most max(L, 1,023) wherever it is used.
+FQ_HD bool fq_acc_row(const FqAccIn& a, int b, FqAccRow& r) {
+  if (a.eligible && !a.eligible[b]) return false;
+  const int64_t len = a.lens[b], pos = a.pos[b];
+  if (len <= 0) return false;
+  r.len = len < 2 * a.L + 1024 ? (int)len : 2 * a.L + 1024;
+  r.n = r.len < a.L ? r.len : a.L;
+  r.pos = pos < -a.L ? -a.L : (pos > a.n_text ? (int)a.n_text + 1 : (int)pos);
+  r.row = b * a.L;
+  r.rev = a.strand[b] == 1;
+  if (a.mode == FQ_ACC_READ) {
+    r.code = (const int32_t*)(r.rev ? a.rseqs : a.seqs) + r.row;
+    r.qual = (const int32_t*)a.quals + r.row;
+  } else {
+    r.code = (const uint8_t*)a.seqs + r.row;
+    r.qual = (const uint8_t*)a.quals + r.row;
+  }
+  return true;
+}
+
+// One base of a read.
 struct FqAccBase {
-  int64_t pac;    // clamp(pos + j, 0, n_text)
-  int site;       // its dense-site index (>= 0)
-  int code;       // the read's base in reference orientation
-  int bq;         // its clamped quality
-  int rev;        // strand 1
-  int64_t cycle;  // its cycle (before the histogram's and the pack's clamps)
+  int pac;    // clamp(pos + j, 0, n_text)
+  int site;   // its dense-site index (< 0: not in a region)
+  int code;   // the read's base in reference orientation
+  int bq;     // its clamped quality
+  int fb;     // the text's base at pac
+  int cycle;  // its cycle (before the histogram's and the pack's clamps)
 };
 
 FQ_HD int64_t fq_acc_clamp64(int64_t x, int64_t lo, int64_t hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-// Base (b, j) in a region: covered (eligible row, j < len) and its pac
-// position on a dense site.  Fills pac and site; true when in a region.
-FQ_HD bool fq_acc_locate(const FqAccIn& a, int b, int j, FqAccBase& o) {
-  if ((a.eligible && !a.eligible[b]) || j >= a.lens[b]) return false;
-  o.pac = fq_acc_clamp64(a.pos[b] + j, 0, a.n_text);
+FQ_HD int fq_acc_pac(const FqAccIn& a, const FqAccRow& r, int j) {
+  return fq_clamp(r.pos + j, 0, (int)a.n_text);
+}
+
+// Base j < r.n: its pac position and site; true when in a region.
+FQ_HD bool fq_acc_locate(const FqAccIn& a, const FqAccRow& r, int j,
+                         FqAccBase& o) {
+  o.pac = fq_acc_pac(a, r, j);
   o.site = a.site_idx[o.pac];
   return o.site >= 0;
 }
 
-// The base's code, quality, strand and cycle (after fq_acc_locate).
-FQ_HD void fq_acc_read(const FqAccIn& a, int b, int j, FqAccBase& o) {
-  const int64_t len = a.lens[b];
-  const int64_t row = (int64_t)b * a.L;
-  o.rev = a.strand[b] == 1;
+// The base's code, quality, cycle and reference base (after
+// fq_acc_locate).
+FQ_HD void fq_acc_read(const FqAccIn& a, const FqAccRow& r, int j,
+                       FqAccBase& o) {
   if (a.mode == FQ_ACC_READ) {
     // j < len, so len - 1 - j >= 0: ragged_unreverse's slot, its clamp
-    const int64_t k = len - 1 - j < a.L - 1 ? len - 1 - j : a.L - 1;
-    const int32_t* s = (const int32_t*)(o.rev ? a.rseqs : a.seqs);
-    const int32_t* q = (const int32_t*)a.quals;
-    o.code = s[row + k];
-    o.bq = fq_clamp(q[row + (o.rev ? j : k)], 0, 93);
-    o.cycle = o.rev ? fq_acc_clamp64(len - 1 - j, 0, a.L) : j;
+    const int k = fq_min(r.len - 1 - j, a.L - 1);
+    o.code = ((const int32_t*)r.code)[k];
+    o.bq = fq_clamp(((const int32_t*)r.qual)[r.rev ? j : k], 0, 93);
+    o.cycle = r.rev ? fq_clamp(r.len - 1 - j, 0, a.L) : j;
   } else {
-    o.code = ((const uint8_t*)a.seqs)[row + j];
-    o.bq = ((const uint8_t*)a.quals)[row + j];
-    o.cycle = o.rev ? len - 1 - j : j;
+    o.code = ((const uint8_t*)r.code)[j];
+    o.bq = ((const uint8_t*)r.qual)[j];
+    o.cycle = r.rev ? r.len - 1 - j : j;
   }
+  o.fb = a.text[o.pac];
 }
 
-// A mismatch against the text at a site that is not dbSNP.
+// A mismatch against the text at a site that is not dbSNP (the flag read
+// only where the bases differ).
 FQ_HD int fq_acc_mism(const FqAccIn& a, const FqAccBase& o) {
-  const int fb = a.text[o.pac];
-  return o.code < 4 && fb < 4 && o.code != fb && !a.dbsnp[o.site];
+  return o.code < 4 && o.fb < 4 && o.code != o.fb && !a.dbsnp[o.site];
 }
 
 FQ_HD int fq_acc_tier(int bq) { return (bq >= 20) + (bq >= 30); }
 
-FQ_HD int fq_acc_cycle_bin(int64_t cycle) {
-  return (int)fq_acc_clamp64(cycle, 0, 255);
-}
+FQ_HD int fq_acc_cycle_bin(int cycle) { return fq_clamp(cycle, 0, 255); }
 
 // ops/qc_full._pack_entry: present(1) | base(3) | qual(7) | mapq(7) |
 // strand(1) | cycle(10)
-FQ_HD int32_t fq_acc_pack(const FqAccIn& a, int b, const FqAccBase& o) {
+FQ_HD int32_t fq_acc_pack(const FqAccIn& a, const FqAccRow& r, int b,
+                          const FqAccBase& o) {
   const int base = fq_clamp(o.code, 0, 4);
   const int mq = (int)fq_acc_clamp64(a.mapq[b], 0, 127);
-  const int cyc = (int)fq_acc_clamp64(o.cycle, 0, 1023);
-  return 1 | (base << 1) | (o.bq << 4) | (mq << 11) | (o.rev << 18) |
+  const int cyc = fq_clamp(o.cycle, 0, 1023);
+  return 1 | (base << 1) | (o.bq << 4) | (mq << 11) | (r.rev << 18) |
          (cyc << 19);
 }
 
-// The marker a base of flat index i = b * L + j enters, or -1: covered,
-// at a marker's pac position and in a region.  The marker word first: few
-// bases have one, so most read one table word, not two.
-FQ_HD int fq_acc_marker(const FqAccIn& a, int i) {
-  const int b = i / a.L, j = i - b * a.L;
-  if ((a.eligible && !a.eligible[b]) || j >= a.lens[b]) return -1;
-  const int64_t pac = fq_acc_clamp64(a.pos[b] + j, 0, a.n_text);
-  const int mk = a.marker_id[pac];
-  return mk >= 0 && a.site_idx[pac] >= 0 ? mk : -1;
-}
-
-// The packed pileup entry of the base of flat index i (an entry).
+// The packed pileup entry of the base of flat index i = b * L + j (an
+// entry: an eligible read's base in a region, at a marker).
 FQ_HD int32_t fq_acc_entry(const FqAccIn& a, int i) {
   const int b = i / a.L, j = i - b * a.L;
+  FqAccRow r;
   FqAccBase o;
-  fq_acc_locate(a, b, j, o);
-  fq_acc_read(a, b, j, o);
-  return fq_acc_pack(a, b, o);
+  fq_acc_row(a, b, r);
+  fq_acc_locate(a, r, j, o);
+  fq_acc_read(a, r, j, o);
+  return fq_acc_pack(a, r, b, o);
+}
+
+// The marker of the entry of flat index i.
+FQ_HD int fq_acc_entry_marker(const FqAccIn& a, int i) {
+  const int b = i / a.L, j = i - b * a.L;
+  return a.marker_id[fq_acc_clamp64(a.pos[b] + j, 0, a.n_text)];
 }
 
 // The layout of the dense output (ops/accumulate.DENSE_FIELDS): depth,
@@ -166,17 +200,10 @@ FQ_HD int64_t fq_acc_hist_at(int S, int h) {
   return 3 * (int64_t)S + 256 * h;
 }
 
-// depth, q20 and q30 of site s from the tiers' counts dense3 (3 (S + 1)):
-// sums mod 2^32, as the plain version's int64 sums cast to int32.
-FQ_HD void fq_acc_finish_site(const int32_t* dense3, int S, int s,
-                              int32_t* out) {
-  const uint32_t t0 = (uint32_t)dense3[s];
-  const uint32_t t1 = (uint32_t)dense3[S + 1 + s];
-  const uint32_t t2 = (uint32_t)dense3[2 * (S + 1) + s];
-  out[s] = (int32_t)(t0 + t1 + t2);
-  out[S + s] = (int32_t)(t1 + t2);
-  out[2 * (int64_t)S + s] = (int32_t)t2;
-}
+// The entry list's counters after the M per-marker counts: the entries
+// appended, then the pileup's overflow count.
+#define FQ_ACC_N_ENT(M) (M)
+#define FQ_ACC_OVF(M) ((M) + 1)
 
 // The slots a marker of n entries keeps at slot offset base (pileup cap):
 // entries of rank r < kept go to slot base + r, the rest overflow.

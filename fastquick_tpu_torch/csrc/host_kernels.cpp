@@ -363,101 +363,149 @@ extern "C" int fq_pairing_host(FQ_PAIR_IN_ARGS, int32_t* out,
   return 0;
 }
 
-// The dense accumulation kernel's blocks (accumulate.cu's
-// fq_accum_dense_launch arguments; nblocks its grid), in order: each
-// block's grid-stride walk a warp of 32 bases at a time (the dense3 adds
-// and cycle bins base by base, then the warp's quality bins a group of
-// equal values at a time, as __match_any_sync groups them), then the
-// block's nonzero bins and region count into the output; then depth, q20
-// and q30 from dense3.  dense3 and out are zeroed here; the adds wrap mod
-// 2^32 as the device's atomics do.
-extern "C" int fq_accum_dense_host(FQ_ACC_IN_ARGS, int nblocks,
-                                   int32_t* dense3, int32_t* out) {
+// The walk kernel's grid (accumulate.cu's fq_accum_walk_launch arguments;
+// nblocks its grid of FQ_WALK_WARPS warps a block), in an order the
+// device might take: the blocks, and each block's warps, from last to
+// first (the entries' list comes out in no read order by chance); each
+// warp's reads, and each read's groups of 4 rounds stage by stage: the
+// rounds' sums lane by lane (the site counts, the cycle bins, then the
+// warp's quality bins a group of equal values at a time, as
+// __match_any_sync groups them), then the rounds' entries appended in lane
+// order; then the block's nonzero bins and region count into the output.  The adds wrap
+// mod 2^32 as the device's atomics do.  out zeroed here when zero_out,
+// counts when given (entries listed).
+extern "C" int fq_accum_walk_host(FQ_ACC_IN_ARGS, int nblocks, int32_t* out,
+                                  int zero_out, int32_t* ent,
+                                  int32_t* counts, int M) {
   const FqAccIn a = fq_acc_in(FQ_ACC_IN_NAMES);
-  const int T = 256, total = B * L, stride = nblocks * T;
+  const int W = 16, G = 4, BUF = 1024;  // FQ_WALK_WARPS, _GROUP, _ENT_BUF
+  const bool D = out != nullptr, E = counts != nullptr;
   auto add = [](int32_t& x, int v) { x = (int32_t)((uint32_t)x + v); };
-  std::fill(dense3, dense3 + 3 * ((int64_t)S + 1), 0);
-  std::fill(out, out + fq_acc_out_size(S), 0);
-  int32_t* hist = out + fq_acc_hist_at(S, 0);
+  if (D && zero_out) std::fill(out, out + fq_acc_out_size(S), 0);
+  if (E) std::fill(counts, counts + M + 2, 0);
+  if (B <= 0 || L <= 0 || (!D && !E)) return 0;
+  int32_t* hist = D ? out + fq_acc_hist_at(S, 0) : nullptr;
   std::vector<int32_t> h(4 * 256);
-  for (int blk = 0; blk < nblocks; ++blk) {
+  std::vector<int32_t> sent;  // the block's entries (shared memory)
+  for (int blk = nblocks - 1; blk >= 0; --blk) {
     std::fill(h.begin(), h.end(), 0);
     int n_reg = 0;
-    for (int base = blk * T; base < total; base += stride) {
-      for (int w0 = base; w0 < base + T; w0 += 32) {
-        int qkey[32];
-        for (int l = 0; l < 32; ++l) {
-          const int i = w0 + l;
-          qkey[l] = -1;
-          if (i >= total) continue;
-          const int b = i / L, j = i - b * L;
-          FqAccBase o;
-          if (!fq_acc_locate(a, b, j, o)) continue;
-          fq_acc_read(a, b, j, o);
-          const int mism = fq_acc_mism(a, o);
-          add(dense3[o.site + fq_acc_tier(o.bq) * (S + 1)], 1);
-          const int cb = fq_acc_cycle_bin(o.cycle);
-          ++h[2 * 256 + cb];
-          if (mism) ++h[3 * 256 + cb];
-          qkey[l] = o.bq << 1 | mism;
-          ++n_reg;
-        }
-        for (int l = 0; l < 32; ++l) {
-          if (qkey[l] < 0) continue;
-          int c = 0, first = l;
-          for (int k = 0; k < 32; ++k)
-            if (qkey[k] == qkey[l]) {
-              ++c;
-              first = std::min(first, k);
+    sent.clear();
+    bool full = false;  // an append did not fit: it and later ones go on
+    for (int w = W - 1; w >= 0; --w) {
+      for (int b = blk * W + w; b < B; b += nblocks * W) {
+        FqAccRow r;
+        if (!fq_acc_row(a, b, r)) continue;
+        for (int j0 = 0; j0 < r.n; j0 += 32 * G) {
+          FqAccBase o[4][32];
+          int mk[4][32];
+          bool in[4][32];
+          for (int g = 0; g < G; ++g)
+            for (int l = 0; l < 32; ++l) {
+              const int j = j0 + 32 * g + l;
+              in[g][l] = false;
+              mk[g][l] = -1;
+              if (j >= r.n) continue;
+              if (D) {
+                in[g][l] = fq_acc_locate(a, r, j, o[g][l]);
+              } else {
+                o[g][l].pac = fq_acc_pac(a, r, j);
+                mk[g][l] = a.marker_id[o[g][l].pac];
+                in[g][l] = mk[g][l] >= 0 && a.site_idx[o[g][l].pac] >= 0;
+              }
             }
-          if (first != l) continue;
-          h[qkey[l] >> 1] += c;
-          if (qkey[l] & 1) h[256 + (qkey[l] >> 1)] += c;
+          for (int g = 0; g < G; ++g)
+            for (int l = 0; l < 32; ++l)
+              if (in[g][l] && D) {
+                fq_acc_read(a, r, j0 + 32 * g + l, o[g][l]);
+                if (E) mk[g][l] = a.marker_id[o[g][l].pac];
+              }
+          for (int g = 0; g < G && j0 + 32 * g < r.n && D; ++g) {
+            {
+              int qkey[32];
+              for (int l = 0; l < 32; ++l) {
+                qkey[l] = -1;
+                if (!in[g][l]) continue;
+                const FqAccBase& x = o[g][l];
+                const int mism = fq_acc_mism(a, x);
+                const int tier = fq_acc_tier(x.bq);
+                add(out[x.site], 1);
+                if (tier > 0) add(out[S + x.site], 1);
+                if (tier > 1) add(out[2 * (int64_t)S + x.site], 1);
+                const int cb = fq_acc_cycle_bin(x.cycle);
+                ++h[2 * 256 + cb];
+                if (mism) ++h[3 * 256 + cb];
+                qkey[l] = x.bq << 1 | mism;
+                ++n_reg;
+              }
+              for (int l = 0; l < 32; ++l) {
+                if (qkey[l] < 0) continue;
+                int c = 0, first = l;
+                for (int k = 0; k < 32; ++k)
+                  if (qkey[k] == qkey[l]) {
+                    ++c;
+                    first = std::min(first, k);
+                  }
+                if (first != l) continue;
+                h[qkey[l] >> 1] += c;
+                if (qkey[l] & 1) h[256 + (qkey[l] >> 1)] += c;
+              }
+            }
+          }
+          for (int g = 0; g < G && E; ++g) {
+            int c = 0;
+            for (int l = 0; l < 32; ++l) c += in[g][l] && mk[g][l] >= 0;
+            const bool fits = !full && (int)sent.size() + c <= BUF;
+            full = !fits && c;
+            for (int l = 0; l < 32; ++l)
+              if (in[g][l] && mk[g][l] >= 0) {
+                const int32_t idx = r.row + j0 + 32 * g + l;
+                if (fits)
+                  sent.push_back(idx);
+                else
+                  ent[counts[FQ_ACC_N_ENT(M)]++] = idx;
+                ++counts[mk[g][l]];
+              }
+          }
         }
       }
     }
+    for (int32_t idx : sent) ent[counts[FQ_ACC_N_ENT(M)]++] = idx;
+    if (!D) continue;
     for (int k = 0; k < 4 * 256; ++k)
       if (h[k]) add(hist[k], h[k]);
     if (n_reg) add(hist[4 * 256], n_reg);
   }
-  for (int s = 0; s < S; ++s) fq_acc_finish_site(dense3, S, s, out);
   return 0;
 }
 
-// The pileup kernel's four steps in order (accumulate.cu's
-// fq_accum_pileup_launch arguments): each marker's entry count, the
-// exclusive scan, the buckets filled in reverse grid order (the kernel's
-// atomics give any order; the reverse keeps read order from coming out by
-// chance), then each marker's warp: up to 32 entries ranked by comparing
-// each index with the others, more by taking the next smallest index once
-// a kept slot.  Outputs zeroed here.
-extern "C" int fq_accum_pileup_host(FQ_ACC_IN_ARGS,
-                                    const int32_t* marker_base, int M,
-                                    int cap, int32_t* pileup, int32_t* cnt,
-                                    int32_t* ovf, int32_t* off,
-                                    int32_t* bucket) {
+// The order kernels' three steps in order (accumulate.cu's
+// fq_accum_order_launch arguments): the exclusive scan of the marker
+// counts, the listed entries into their buckets in list order, then each
+// marker's warp: up to 32 entries ranked by comparing each index with the
+// others, more by taking the next smallest index once a kept slot.
+// pileup zeroed here.
+extern "C" int fq_accum_order_host(FQ_ACC_IN_ARGS,
+                                   const int32_t* marker_base, int M,
+                                   int cap, const int32_t* ent,
+                                   int32_t* counts, int32_t* pileup,
+                                   int32_t* off, int32_t* bucket) {
   const FqAccIn a = fq_acc_in(FQ_ACC_IN_NAMES);
-  const int total = B * L;
   std::fill(pileup, pileup + (int64_t)M * cap, 0);
-  std::fill(cnt, cnt + M, 0);
-  *ovf = 0;
-  if (total <= 0 || M <= 0) return 0;
-  for (int i = 0; i < total; ++i) {
-    const int mk = fq_acc_marker(a, i);
-    if (mk >= 0) ++cnt[mk];
-  }
+  if (M <= 0) return 0;
+  const int32_t* cnt = counts;
+  int32_t& ovf = counts[FQ_ACC_OVF(M)];
   off[0] = 0;
   for (int m = 0; m < M; ++m) off[m + 1] = off[m] + cnt[m];
-  for (int i = total - 1; i >= 0; --i) {
-    const int mk = fq_acc_marker(a, i);
-    if (mk >= 0) bucket[off[mk]++] = i;
-  }
+  for (int t = 0; t < counts[FQ_ACC_N_ENT(M)]; ++t)
+    bucket[off[fq_acc_entry_marker(a, ent[t])]++] = ent[t];
   for (int m = 0; m < M; ++m) {
     const int n = cnt[m], base = marker_base ? marker_base[m] : 0;
     const int kept = fq_acc_kept(n, base, cap);
     const int32_t* bk = bucket + (off[m] - n);
     int32_t* row = pileup + (int64_t)m * cap + base;
-    *ovf += n - kept;
+    ovf += n - kept;
+    if (!kept) continue;
     if (n <= 32) {
       for (int l = 0; l < n; ++l) {
         int rank = 0;

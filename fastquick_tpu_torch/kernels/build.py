@@ -53,9 +53,12 @@ _L = ctypes.c_longlong
 _PAIRING_ARGS = ([_I, _I] + [_P] * 7 + [_L, _P, _L, _P, _P, _P, _P]
                  + [_I, _L, _I, _I])
 # the accumulation kernels' inputs (csrc/accumulate_body.cuh
-# FQ_ACC_IN_ARGS); the pileup's marker_base, M and cap, the outputs and
-# the scratch (and the launch's stream) follow
+# FQ_ACC_IN_ARGS); then the walk's out, zero_out, ent, counts and M, or
+# the order's marker_base, M, cap, ent, counts, pileup, off and bucket
+# (and the launch's stream; the walk's host build takes its grid first)
 _ACC_ARGS = [_P] * 12 + [_L] + [_I] * 4
+_WALK_ARGS = [_P, _I, _P, _P, _I]
+_ORDER_ARGS = [_P, _I, _I] + [_P] * 5
 
 
 def reset_launch_counts() -> None:
@@ -154,11 +157,11 @@ def cuda_library() -> ctypes.CDLL:
             lib.fq_drand48_launch.argtypes = [_P, _P, _I] + [_P] * 5
             lib.fq_pairing_launch.restype = _I
             lib.fq_pairing_launch.argtypes = _PAIRING_ARGS + [_P] * 5
-            lib.fq_accum_dense_launch.restype = _I
-            lib.fq_accum_dense_launch.argtypes = _ACC_ARGS + [_P] * 3
-            lib.fq_accum_pileup_launch.restype = _I
-            lib.fq_accum_pileup_launch.argtypes = (_ACC_ARGS + [_P, _I, _I]
-                                                   + [_P] * 6)
+            lib.fq_accum_walk_launch.restype = _I
+            lib.fq_accum_walk_launch.argtypes = _ACC_ARGS + _WALK_ARGS + [_P]
+            lib.fq_accum_order_launch.restype = _I
+            lib.fq_accum_order_launch.argtypes = (_ACC_ARGS + _ORDER_ARGS
+                                                  + [_P])
             _cuda_lib = lib
         return _cuda_lib
 
@@ -187,11 +190,10 @@ def host_library() -> ctypes.CDLL:
             lib.fq_drand48_host.argtypes = [_P, _P, _I] + [_P] * 4
             lib.fq_pairing_host.restype = _I
             lib.fq_pairing_host.argtypes = _PAIRING_ARGS + [_P] * 4
-            lib.fq_accum_dense_host.restype = _I
-            lib.fq_accum_dense_host.argtypes = _ACC_ARGS + [_I, _P, _P]
-            lib.fq_accum_pileup_host.restype = _I
-            lib.fq_accum_pileup_host.argtypes = (_ACC_ARGS + [_P, _I, _I]
-                                                 + [_P] * 5)
+            lib.fq_accum_walk_host.restype = _I
+            lib.fq_accum_walk_host.argtypes = _ACC_ARGS + [_I] + _WALK_ARGS
+            lib.fq_accum_order_host.restype = _I
+            lib.fq_accum_order_host.argtypes = _ACC_ARGS + _ORDER_ARGS
             _host_lib = lib
         return _host_lib
 

@@ -11,22 +11,29 @@ and, where it differs from a non-dbSNP reference base, to their mismatch
 twins.  The one-program step also writes each base on a marker into that
 marker's pileup slots in read order.
 
-Wrappers, each with its plain PyTorch version beside it (the port's
-torch code before the kernels, moved here unchanged; CPU tensors run it):
+Two kernels (csrc/accumulate.cu): the walk (fq_accum_walk, counted in
+``launch_counts["accumulate"]``) visits the (B, L) grid once a read at a
+time and adds the dense sums, lists the pileup entries, or both; the
+order (fq_accum_order, counted in ``launch_counts["pileup"]``) puts the
+listed entries in read order into their markers' slots without touching
+the grid.  Wrappers, each with its plain PyTorch version beside it (the
+port's torch code before the kernels, moved here unchanged; CPU tensors
+run it):
 
-- ``accumulate`` (qc_step_full: int32 planes in read orientation, the
-  eligible rows) and ``dense_accumulate`` (DeviceDenseStats: uint8
-  planes in reference orientation, every row) launch the dense kernel
-  (csrc/accumulate.cu fq_accum_dense), counted in
-  ``launch_counts["accumulate"]``; plain: ``accumulate_plain``,
-  ``dense_accumulate_plain``.
-- ``pileup`` launches the pileup kernel (fq_accum_pileup), counted in
-  ``launch_counts["pileup"]``; plain: ``pileup_plain`` (its ranks from
-  ``_pileup_ranks``, a stable sort).
+- ``accumulate_pileup`` (qc_step_full: int32 planes in read orientation,
+  the eligible rows): one walk for both, then the order; plain:
+  ``accumulate_plain`` and ``pileup_plain``.
+- ``accumulate``: the walk's dense sums alone; plain: ``accumulate_plain``.
+- ``dense_accumulate`` (DeviceDenseStats: uint8 planes in reference
+  orientation, every row): the walk's dense sums, into a fresh output or
+  added to the caller's resident one; plain: ``dense_accumulate_plain``.
+- ``pileup``: the walk's entries alone (the marker word read first), then
+  the order; plain: ``pileup_plain`` (its ranks from ``_pileup_ranks``, a
+  stable sort).
 
-The dense kernel writes one int32 vector laid out as DENSE_FIELDS
+The dense sums are one int32 vector laid out as DENSE_FIELDS
 (``unpack_dense`` cuts it), so that a caller on the host copies it once.
-A CUDA tensor launches its kernel or raises; nothing falls back.
+A CUDA tensor launches its kernels or raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -275,8 +282,10 @@ def acc_call(tables, n_text: int, mode: int, seqs, rseqs, quals, lens,
     MODE_READ, uint8 in MODE_REF), the per-read fields int64, eligible as
     bytes, the tables; a copy only of what is not so already."""
     B, L = seqs.shape
-    if B * L >= 2 ** 31:
+    if B * L >= 2 ** 31 or L > 2 ** 29:
         raise ValueError(f"batch of {B} x {L} bases: at most 2^31 - 1")
+    if n_text + L + 2 >= 2 ** 31:  # the kernels' 32-bit pac positions
+        raise ValueError(f"text of {n_text} bases: at most 2^31 - L - 3")
     pt = _i32 if mode == MODE_READ else torch.uint8
 
     def c(t, dtype):
@@ -302,67 +311,122 @@ def acc_call(tables, n_text: int, mode: int, seqs, rseqs, quals, lens,
         raise ValueError(f"site tables must hold n_text + 1 = {n_text + 1} "
                          f"positions and {tables.n_sites} dbSNP flags")
     keep = [t for t in planes + reads + [elig, mq] + tabs if t is not None]
-
-    def p(t):
-        return ctypes.c_void_p(None if t is None else t.data_ptr())
-
-    args = [*(p(t) for t in planes), *(p(t) for t in reads), p(elig), p(mq),
-            *(p(t) for t in tabs), int(n_text), B, L, int(tables.n_sites),
-            mode]
+    args = [*(_p(t) for t in planes), *(_p(t) for t in reads), _p(elig),
+            _p(mq), *(_p(t) for t in tabs), int(n_text), B, L,
+            int(tables.n_sites), mode]
     return AccCall(args, keep, B, L)
 
 
-def dense_call(tables, n_text, mode, seqs, rseqs, quals, lens, pos, strand,
-               eligible=None):
-    """(call, dense3 scratch, out): the dense kernel's arguments and its
-    int32 output (dense_size(S)), allocated here."""
-    call = acc_call(tables, n_text, mode, seqs, rseqs, quals, lens, pos,
-                    strand, eligible)
+def _p(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+class Walk(NamedTuple):
+    """A walk's arguments after its inputs (out, zero_out, ent, counts, M)
+    and the tensors it writes: the dense sums or None; the entry list (B
+    L,) and counts (M + 2,: each marker's entries, the entries listed, the
+    pileup's overflow) or None."""
+    tail: list
+    out: torch.Tensor | None
+    ent: torch.Tensor | None
+    counts: torch.Tensor | None
+
+
+def walk_call(call: AccCall, tables, dense: bool = True, out=None,
+              entries: bool = False) -> Walk:
+    """The walk kernel's arguments after call's: the dense sums (dense:
+    into out when given, int32 dense_size(S) contiguous, added to; else
+    into a new output that the launch zeroes) and the pileup entries
+    (entries), its outputs allocated here and kept alive in call.keep."""
     S = int(tables.n_sites)
-    dev = seqs.device
-    dense3 = torch.empty(3 * (S + 1), dtype=_i32, device=dev)
-    out = torch.empty(dense_size(S), dtype=_i32, device=dev)
-    return call, dense3, out
+    dev = call.keep[0].device
+    if dense and out is None:
+        zero, out = True, torch.empty(dense_size(S), dtype=_i32, device=dev)
+    else:
+        zero = False
+    if out is not None and (out.dtype != _i32 or out.shape != (dense_size(S),)
+                            or not out.is_contiguous()):
+        raise ValueError(f"dense sums must be contiguous int32 "
+                         f"({dense_size(S)},)")
+    M = int(tables.n_markers) if entries else 0
+    ent = counts = None
+    if entries:
+        ent = torch.empty(call.B * call.L, dtype=_i32, device=dev)
+        counts = torch.empty(M + 2, dtype=_i32, device=dev)
+    call.keep.extend(t for t in (out, ent, counts) if t is not None)
+    return Walk([_p(out), int(zero), _p(ent), _p(counts), M], out, ent,
+                counts)
 
 
-def pileup_call(tables, n_text, seqs, rseqs, quals, lens, eligible, pos,
-                strand, mapq, pileup_cap: int, marker_base):
-    """(call, tail, outputs): the pileup kernel's arguments before the
-    outputs (call), marker_base, M, cap and the outputs and scratch
-    (tail), and (pileup (M, cap), pileup_cnt (M,), ovf (1,)) int32."""
-    call = acc_call(tables, n_text, MODE_READ, seqs, rseqs, quals, lens,
-                    pos, strand, eligible, mapq)
+def order_call(call: AccCall, tables, walk: Walk, pileup_cap: int,
+               marker_base):
+    """(tail, pileup outputs): the order kernels' arguments after call's
+    (marker_base, M, cap, ent, counts, pileup, off, bucket) and the
+    pileup dict (pileup (M, pileup_cap), pileup_cnt (M,), pileup_ovf
+    0-d, int32; the last two views of the walk's counts)."""
     M = int(tables.n_markers)
-    dev = seqs.device
+    dev = walk.ent.device
     mb = None if marker_base is None else marker_base.to(_i32).contiguous()
     if mb is not None and mb.shape != (M,):
         raise ValueError(f"marker_base must be ({M},)")
     pile = torch.empty((M, pileup_cap), dtype=_i32, device=dev)
-    cnt = torch.empty(M, dtype=_i32, device=dev)
-    ovf = torch.empty(1, dtype=_i32, device=dev)
     off = torch.empty(M + 1, dtype=_i32, device=dev)
     bucket = torch.empty(call.B * call.L, dtype=_i32, device=dev)
-    call.keep.extend(t for t in (mb, off, bucket) if t is not None)
-    p = build.ptr
-    tail = [ctypes.c_void_p(None if mb is None else mb.data_ptr()), M,
-            int(pileup_cap), p(pile), p(cnt), p(ovf), p(off), p(bucket)]
-    return call, tail, (pile, cnt, ovf)
+    call.keep.extend(t for t in (mb, pile, off, bucket) if t is not None)
+    tail = [_p(mb), M, int(pileup_cap), _p(walk.ent), _p(walk.counts),
+            _p(pile), _p(off), _p(bucket)]
+    return tail, {"pileup": pile, "pileup_cnt": walk.counts[:M],
+                  "pileup_ovf": walk.counts[M + 1]}
 
 
 def _stream(dev) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
-def _launch_dense(tables, n_text, mode, seqs, rseqs, quals, lens, pos,
-                  strand, eligible=None) -> torch.Tensor:
-    call, dense3, out = dense_call(tables, n_text, mode, seqs, rseqs, quals,
-                                   lens, pos, strand, eligible)
+def _walk(call: AccCall, walk: Walk) -> None:
     build.require_cuda(*call.keep)
-    rc = build.cuda_library().fq_accum_dense_launch(
-        *call.args, build.ptr(dense3), build.ptr(out), _stream(seqs.device))
+    rc = build.cuda_library().fq_accum_walk_launch(
+        *call.args, *walk.tail, _stream(call.keep[0].device))
     build.check(rc, "accumulate")
     build.launch_counts["accumulate"] += 1
+
+
+def _order(call: AccCall, tail: list) -> None:
+    build.require_cuda(*call.keep)
+    rc = build.cuda_library().fq_accum_order_launch(
+        *call.args, *tail, _stream(call.keep[0].device))
+    build.check(rc, "pileup")
+    build.launch_counts["pileup"] += 1
+
+
+def step_outputs(dense: dict, pile: dict) -> dict:
+    """The one-program step's accumulators in its order: the dense sums,
+    the pileups, n_base_mapped."""
+    out = {k: v for k, v in dense.items() if k != "n_base_mapped"}
+    out.update(pile)
+    out["n_base_mapped"] = dense["n_base_mapped"]
     return out
+
+
+def accumulate_pileup(tables, n_text, seqs, rseqs, quals, lens, eligible,
+                      pos, strand, mapq, pileup_cap: int,
+                      marker_base=None) -> dict:
+    """The one-program step's per-base accumulators in one walk of the
+    grid: ``accumulate``'s dense sums and ``pileup``'s marker pileups
+    (its arguments), n_base_mapped last.  CUDA tensors launch the walk
+    (sums and entry list) and the order, CPU tensors run accumulate_plain
+    and pileup_plain."""
+    args = (tables, n_text, seqs, rseqs, quals, lens, eligible, pos, strand)
+    if seqs.device.type == "cpu":
+        return step_outputs(accumulate_plain(*args), pileup_plain(
+            *args, mapq, pileup_cap, marker_base))
+    call = acc_call(tables, n_text, MODE_READ, seqs, rseqs, quals, lens,
+                    pos, strand, eligible, mapq)
+    walk = walk_call(call, tables, entries=True)
+    tail, pile = order_call(call, tables, walk, pileup_cap, marker_base)
+    _walk(call, walk)
+    _order(call, tail)
+    return step_outputs(unpack_dense(walk.out, int(tables.n_sites)), pile)
 
 
 def accumulate(tables, n_text, seqs, rseqs, quals, lens, eligible, pos,
@@ -373,31 +437,37 @@ def accumulate(tables, n_text, seqs, rseqs, quals, lens, eligible, pos,
 
     seqs, rseqs: (B, L) reversed and reversed-complement codes as bwa
     stores them; quals: (B, L) phred in read orientation; lens, pos,
-    strand: (B,); eligible: (B,) bool.  CUDA tensors launch the dense
-    kernel (views of its one output), CPU tensors run accumulate_plain."""
+    strand: (B,); eligible: (B,) bool.  CUDA tensors launch the walk
+    (views of its one output), CPU tensors run accumulate_plain."""
     if seqs.device.type == "cpu":
         return accumulate_plain(tables, n_text, seqs, rseqs, quals, lens,
                                 eligible, pos, strand)
-    out = _launch_dense(tables, n_text, MODE_READ, seqs, rseqs, quals, lens,
-                        pos, strand, eligible)
-    return unpack_dense(out, int(tables.n_sites))
+    call = acc_call(tables, n_text, MODE_READ, seqs, rseqs, quals, lens,
+                    pos, strand, eligible)
+    walk = walk_call(call, tables)
+    _walk(call, walk)
+    return unpack_dense(walk.out, int(tables.n_sites))
 
 
 def dense_accumulate(tab, n_text: int, pos: torch.Tensor,
                      strand: torch.Tensor, codes: torch.Tensor,
-                     quals: torch.Tensor, lens: torch.Tensor
-                     ) -> torch.Tensor:
+                     quals: torch.Tensor, lens: torch.Tensor,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
     """DeviceDenseStats' accumulation over a (B, L) batch of reference-
     oriented uint8 codes/quals (every row): the dense layout
-    (DENSE_FIELDS) as one int32 vector, sums mod 2^32 (a chunk's counts
-    fit; the caller widens them on the host).  CUDA tensors launch the
-    dense kernel, CPU tensors run dense_accumulate_plain
+    (DENSE_FIELDS) as one int32 vector, sums mod 2^32, in a new vector or
+    added to out (contiguous int32, on the inputs' device) and returned.
+    CUDA tensors launch the walk, CPU tensors run dense_accumulate_plain
     (pack_dense_plain)."""
     if codes.device.type == "cpu":
-        return pack_dense_plain(dense_accumulate_plain(
+        sums = pack_dense_plain(dense_accumulate_plain(
             tab, n_text, pos, strand, codes, quals, lens), tab.n_sites)
-    return _launch_dense(tab, n_text, MODE_REF, codes, None, quals, lens,
-                         pos, strand)
+        return sums if out is None else out.add_(sums)
+    call = acc_call(tab, n_text, MODE_REF, codes, None, quals, lens, pos,
+                    strand)
+    walk = walk_call(call, tab, out=out)
+    _walk(call, walk)
+    return walk.out
 
 
 def pileup(tables, n_text, seqs, rseqs, quals, lens, eligible, pos, strand,
@@ -406,18 +476,16 @@ def pileup(tables, n_text, seqs, rseqs, quals, lens, eligible, pos, strand,
     packed entries (_pack_entry) in read order from slot marker_base[m]
     (0 when None; >= 0), pileup_cnt (M,) entries a marker, pileup_ovf
     (0-d) entries past the cap; int32.  The inputs as ``accumulate``'s,
-    with mapq (B,).  CUDA tensors launch the pileup kernel, CPU tensors
-    run pileup_plain."""
+    with mapq (B,).  CUDA tensors launch the walk (its entries alone) and
+    the order, CPU tensors run pileup_plain."""
     if seqs.device.type == "cpu":
         return pileup_plain(tables, n_text, seqs, rseqs, quals, lens,
                             eligible, pos, strand, mapq, pileup_cap,
                             marker_base)
-    call, tail, (pile, cnt, ovf) = pileup_call(
-        tables, n_text, seqs, rseqs, quals, lens, eligible, pos, strand,
-        mapq, pileup_cap, marker_base)
-    build.require_cuda(*call.keep)
-    rc = build.cuda_library().fq_accum_pileup_launch(
-        *call.args, *tail, _stream(seqs.device))
-    build.check(rc, "pileup")
-    build.launch_counts["pileup"] += 1
-    return {"pileup": pile, "pileup_cnt": cnt, "pileup_ovf": ovf[0]}
+    call = acc_call(tables, n_text, MODE_READ, seqs, rseqs, quals, lens,
+                    pos, strand, eligible, mapq)
+    walk = walk_call(call, tables, dense=False, entries=True)
+    tail, pile = order_call(call, tables, walk, pileup_cap, marker_base)
+    _walk(call, walk)
+    _order(call, tail)
+    return pile

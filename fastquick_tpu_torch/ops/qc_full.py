@@ -45,6 +45,7 @@ from ..utils.device import resolve_device
 from .accumulate import (  # noqa: F401  (re-exported as the reference's)
     _pileup_ranks,
     accumulate,
+    accumulate_pileup,
     pileup,
     ragged_unreverse,
 )
@@ -593,8 +594,13 @@ def _pair_mode(fm, tables, opt_args, n_text, n_aln, alns, lens, mapped,
 def _accumulate(tables, n_text, seqs, rseqs, quals, lens, eligible, pos,
                 strand, mapq, pileup_cap, marker_base):
     """The per-base accumulators over the covered (B, L) grid and the
-    marker pileups in read order: the dense kernel, then the pileup kernel
-    (ops/accumulate; their plain versions on the CPU)."""
+    marker pileups in read order (ops/accumulate): on the card one walk of
+    the grid for both (accumulate_pileup), on the CPU the plain versions
+    through accumulate and pileup."""
+    if seqs.is_cuda:
+        return accumulate_pileup(tables, n_text, seqs, rseqs, quals, lens,
+                                 eligible, pos, strand, mapq, pileup_cap,
+                                 marker_base)
     acc = accumulate(tables, n_text, seqs, rseqs, quals, lens, eligible, pos,
                      strand)
     n_base = acc.pop("n_base_mapped")

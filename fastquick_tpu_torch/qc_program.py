@@ -397,14 +397,14 @@ def mesh_job(mesh, spec: dict) -> dict:
     0 writes each run's product files there, prefixed by its name),
     engine ("native": the fill's exact redo is the native engine's, else
     default_engine's), check_kernels (hold each pairing sweep and each
-    accumulate and pileup call of a run to the plain version on its
-    inputs, after the run) and runs, a list of
+    accumulation (accumulate_pileup) of a run to the plain versions on
+    its inputs, after the run) and runs, a list of
     dicts: name, kernel, opts (opt_args overrides), fill (run_with_fill,
     else mesh_stats).  Returns this rank's shard index, its world's load
     time, its peak device memory and each run's stats and rows (numpy),
     stage times, wall time, launches, first-pass fallback, files, the
     sweeps held ((pairs, k_occ, cnt_chg) each) and the accumulations held
-    ((kind, B, L, marker_base's largest offset or None) each)."""
+    ((B, L, marker_base's largest offset or None) each)."""
     from .kernels import build
     from .testing.accumulate_cases import check_launches, recorded_launches
     from .testing.pairing_cases import check_sweeps, recorded_sweeps

@@ -15,9 +15,10 @@ one batch of placed reads over it, as numpy arrays:
 - ``ref_case``: DeviceDenseStats' inputs (uint8 codes and quals in
   reference orientation, the quals after - 33 with uint8 wrap).
 
-``recorded_launches`` and ``check_launches`` hold every accumulate and
-pileup call of a one-program run to the plain versions after it (in this
-process: a mesh rank records its own).
+``recorded_launches`` and ``check_launches`` hold every accumulation of a
+one-program run on the card (accumulate_pileup: a walk and an order
+launch) to the plain versions after it (in this process: a mesh rank
+records its own).
 
 The reads are the text with a share of substitutions and N codes, on
 both strands; options reach the edges: ragged lengths, reads past the
@@ -96,6 +97,16 @@ def edge_tables(name: str, spec, text, device):
     if name == "marker_at_zero":
         t.marker_id[0] = 0
     return t
+
+
+def mark_every_site(tables) -> None:
+    """Put a marker at every dense site of `tables` (marker site % M, in
+    place): each base in a region becomes a pileup entry."""
+    import torch
+
+    site = tables.site_idx
+    tables.marker_id[:] = torch.where(site >= 0, site % tables.n_markers,
+                                      -1).to(tables.marker_id.dtype)
 
 
 def world(rng: np.random.Generator, n_text: int, n_markers: int,
@@ -250,10 +261,10 @@ def search_rows(case: dict, n_text: int):
 
 @contextlib.contextmanager
 def recorded_launches(calls: list):
-    """Record each accumulate and pileup call qc_step_full makes inside
-    the block into calls as (kind, args, outputs): the per-read fields
-    and the outputs copied, the planes and tables as the caller's (the
-    step does not write them)."""
+    """Record each accumulate_pileup call qc_step_full makes on the card
+    inside the block (one walk and one order launch each) into calls as
+    (args, outputs): the per-read fields and the outputs copied, the
+    planes and tables as the caller's (the step does not write them)."""
     import torch
 
     from ..ops import qc_full
@@ -262,18 +273,15 @@ def recorded_launches(calls: list):
         return a.clone() if isinstance(a, torch.Tensor) and a.dim() < 2 \
             else a
 
-    def record(kind, fn):
-        def run(*args):
-            out = fn(*args)
-            calls.append((kind, tuple(keep(a) for a in args),
-                          {k: v.clone() for k, v in out.items()}))
-            return out
-        return run
+    fn = qc_full.accumulate_pileup
 
-    with mock.patch.object(qc_full, "accumulate",
-                           record("accumulate", qc_full.accumulate)), \
-            mock.patch.object(qc_full, "pileup",
-                              record("pileup", qc_full.pileup)):
+    def run(*args):
+        out = fn(*args)
+        calls.append((tuple(keep(a) for a in args),
+                      {k: v.clone() for k, v in out.items()}))
+        return out
+
+    with mock.patch.object(qc_full, "accumulate_pileup", run):
         yield
 
 
@@ -296,17 +304,16 @@ def same_outputs(got: dict, want: dict, what: str) -> None:
 
 
 def check_launches(calls: list, what: str) -> list:
-    """Each recorded call against its plain version on its own inputs
-    (raises unless equal); returns (kind, B, L, marker_base: None, or
-    its largest slot offset) of each."""
+    """Each recorded call against the plain versions on its own inputs
+    (raises unless equal); returns (B, L, marker_base: None, or its
+    largest slot offset) of each."""
     from ..ops import accumulate as acc
 
-    plain = {"accumulate": acc.accumulate_plain, "pileup": acc.pileup_plain}
     out = []
-    for i, (kind, args, got) in enumerate(calls):
-        same_outputs(got, plain[kind](*args),
-                     f"{what}, {kind} launch {i} != plain")
-        mb = args[-1] if kind == "pileup" else None
-        out.append((kind, *args[2].shape,
-                    None if mb is None else int(mb.max())))
+    for i, (args, got) in enumerate(calls):
+        want = acc.step_outputs(acc.accumulate_plain(*args[:9]),
+                                 acc.pileup_plain(*args))
+        same_outputs(got, want, f"{what}, accumulation {i} != plain")
+        mb = args[-1]
+        out.append((*args[2].shape, None if mb is None else int(mb.max())))
     return out

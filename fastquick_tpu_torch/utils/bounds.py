@@ -79,16 +79,34 @@ OPS_ACC_BASE = 20
 
 
 def accumulate_bound(B: int, n_cover: int, n_reg: int, S: int,
-                     elem: int, per_read: int) -> tuple[float, str]:
+                     elem: int, per_read: int,
+                     output: bool = True) -> tuple[float, str]:
     """The least time of the dense accumulation of B reads: each of the
     n_cover covered bases' site word, each of the n_reg bases in a
     region's code and quality (elem bytes each), text word and dbSNP
     flag, per_read bytes a read (position, strand, length and, in the
     one-program step, the eligible flag), and the output (depth, q20,
-    q30, four 256-bin histograms, n_base_mapped: int32); OPS_ACC_BASE
-    operations a covered base."""
+    q30, four 256-bin histograms, n_base_mapped: int32) unless output is
+    False (a DeviceDenseStats chunk adds into sums that stay on the card:
+    the run's one drain moves them); OPS_ACC_BASE operations a covered
+    base."""
     bytes_ = (4 * n_cover + n_reg * (2 * elem + 5) + B * per_read
-              + 4 * (3 * S + 4 * 256 + 1))
+              + (4 * (3 * S + 4 * 256 + 1) if output else 0))
+    return bound(bytes_, n_cover * OPS_ACC_BASE)
+
+
+def walk_bound(B: int, n_cover: int, n_reg: int, n_entry_reads: int,
+               S: int, M: int, cap: int, elem: int,
+               per_read: int) -> tuple[float, str]:
+    """The least time of the one-program step's accumulation of B reads
+    in one walk (the dense sums and the marker pileups): accumulate_bound's
+    bytes with its output, the marker word of each of the n_reg bases in a
+    region, mapq (8 bytes) of the n_entry_reads reads with an entry and
+    the pileup output (M x cap entries, M counts, the overflow count:
+    int32); OPS_ACC_BASE operations a covered base."""
+    bytes_ = (4 * n_cover + n_reg * (2 * elem + 5 + 4) + B * per_read
+              + 8 * n_entry_reads + 4 * (3 * S + 4 * 256 + 1)
+              + 4 * (M * cap + M + 1))
     return bound(bytes_, n_cover * OPS_ACC_BASE)
 
 

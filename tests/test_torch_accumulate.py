@@ -1,18 +1,22 @@
 """The per-base accumulation kernels' bodies (csrc/accumulate_body.cuh and
 the steps of csrc/accumulate.cu, built for the host with g++ as
-fq_accum_dense_host and fq_accum_pileup_host and called with the
-arguments ops/accumulate's wrappers give the launches) against the plain
-versions (accumulate_plain, pileup_plain, dense_accumulate_plain), and the
-plain versions against fastquick_tpu: qc_step_full's accumulators, with
-the search replaced by hit rows that place each read (an index whose
-suffix arrays are the identity), and DeviceDenseStats' jitted program.
+fq_accum_walk_host and fq_accum_order_host and called with the arguments
+ops/accumulate's wrappers give the launches) against the plain versions
+(accumulate_plain, pileup_plain, dense_accumulate_plain), in each of the
+walk's modes: the one-program step's one walk for the sums and the entry
+list, the sums alone, the entries alone, DeviceDenseStats' chunks added
+into resident sums; DeviceDenseStats itself with its flushes deferred and
+one drain against a drain a flush; and the plain versions against
+fastquick_tpu: qc_step_full's accumulators, with the search replaced by
+hit rows that place each read (an index whose suffix arrays are the
+identity), and DeviceDenseStats (its jitted program and the whole class).
 Cases (testing/accumulate_cases.py) reach ragged strand-1 reads, reads
 past the text's end and before its start, qualities above 93 and below
 0 (and, for DeviceDenseStats, characters that wrap past 255), reads
 longer than 256 and 1,024 bases, markers past the pileup cap with and
 without slot offsets, a marker read many times by one read, no eligible
-read and one read.  Every output exact and of the plain version's dtype
-and shape."""
+read, one read, no read, no entry and an entry at every site.  Every
+output exact and of the plain version's dtype and shape."""
 
 import shutil
 from types import SimpleNamespace
@@ -37,7 +41,7 @@ from fastquick_tpu_torch.testing import accumulate_cases as ac  # noqa: E402
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
                                 reason="needs g++")
 
-HOST_BLOCKS = 3  # the host runs the dense kernel's grid-stride walk
+HOST_BLOCKS = 3  # the host runs the walk kernel's grid-stride loop
 
 
 def _qc_args(case):
@@ -50,12 +54,27 @@ def _qc_args(case):
                            "pos", "strand")], t["mapq"]
 
 
-def _host_dense(tables, n_text, mode, *args, eligible=None):
-    call, dense3, out = acc.dense_call(tables, n_text, mode, *args,
-                                       eligible=eligible)
-    assert build.host_library().fq_accum_dense_host(
-        *call.args, HOST_BLOCKS, build.ptr(dense3), build.ptr(out)) == 0
-    return out
+def _host_walk(tables, n_text, mode, seqs, rseqs, quals, lens, pos, strand,
+               eligible=None, mapq=None, **kw):
+    """(call, walk): the host build of the walk on what the wrappers
+    would launch (walk_call's dense, out, entries in kw)."""
+    call = acc.acc_call(tables, n_text, mode, seqs, rseqs, quals, lens, pos,
+                        strand, eligible, mapq)
+    walk = acc.walk_call(call, tables, **kw)
+    assert build.host_library().fq_accum_walk_host(
+        *call.args, HOST_BLOCKS, *walk.tail) == 0
+    return call, walk
+
+
+def _host_order(call, tables, walk, cap, marker_base):
+    tail, pile = acc.order_call(call, tables, walk, cap, marker_base)
+    assert build.host_library().fq_accum_order_host(*call.args, *tail) == 0
+    return pile
+
+
+def _host_dense(tables, n_text, mode, *args, eligible=None, out=None):
+    return _host_walk(tables, n_text, mode, *args, eligible=eligible,
+                      out=out)[1].out
 
 
 def _host_accumulate(tables, n_text, seqs, rseqs, quals, lens, eligible,
@@ -67,12 +86,24 @@ def _host_accumulate(tables, n_text, seqs, rseqs, quals, lens, eligible,
 
 def _host_pileup(tables, n_text, seqs, rseqs, quals, lens, eligible, pos,
                  strand, mapq, cap, marker_base):
-    call, tail, (pile, cnt, ovf) = acc.pileup_call(
-        tables, n_text, seqs, rseqs, quals, lens, eligible, pos, strand,
-        mapq, cap, marker_base)
-    assert build.host_library().fq_accum_pileup_host(*call.args,
-                                                     *tail) == 0
-    return {"pileup": pile, "pileup_cnt": cnt, "pileup_ovf": ovf[0]}
+    call, walk = _host_walk(tables, n_text, acc.MODE_READ, seqs, rseqs,
+                            quals, lens, pos, strand, eligible, mapq,
+                            dense=False, entries=True)
+    return _host_order(call, tables, walk, cap, marker_base)
+
+
+def _host_accumulate_pileup(tables, n_text, seqs, rseqs, quals, lens,
+                            eligible, pos, strand, mapq, cap, marker_base):
+    """The one-program step's one walk (sums and entries) and the order,
+    host build; also the walk's entry list."""
+    call, walk = _host_walk(tables, n_text, acc.MODE_READ, seqs, rseqs,
+                            quals, lens, pos, strand, eligible, mapq,
+                            entries=True)
+    pile = _host_order(call, tables, walk, cap, marker_base)
+    M = int(tables.n_markers)
+    listed = walk.ent[:int(walk.counts[M])]
+    return acc.step_outputs(acc.unpack_dense(walk.out, tables.n_sites),
+                             pile), listed
 
 
 def _same(got: dict, want: dict, what: str):
@@ -224,3 +255,190 @@ def test_ref_matches_jax(name):
     for g, w in zip(got, want):
         assert np.array_equal(g.numpy(), np.asarray(w))
     assert int(np.asarray(want[1]).sum()) > 0
+
+
+def _step_case(name):
+    """(text, tables, planes, mapq, cap, marker_base) of a one-program
+    edge case; "empty" is "mixed" with no read, "no_markers" "mixed" with
+    every marker word cleared (eligible reads, no entry), "all_markers"
+    "mixed" with a marker at every site (a walk block lists more entries
+    than its shared buffer holds)."""
+    base = "mixed" if name in ("empty", "no_markers", "all_markers") \
+        else name
+    spec, text, case = ac.edge_case(base)
+    tables = ac.edge_tables(base, spec, text, "cpu")
+    if name == "empty":
+        case = {k: v[:0] if isinstance(v, np.ndarray) and k != "marker_base"
+                else v for k, v in case.items()}
+    if name == "no_markers":
+        tables.marker_id[:] = -1
+    if name == "all_markers":
+        ac.mark_every_site(tables)
+    planes, mapq = _qc_args(case)
+    mb = None if case["marker_base"] is None else torch.from_numpy(
+        case["marker_base"])
+    return text, tables, planes, mapq, case["pileup_cap"], mb
+
+
+@pytest.mark.parametrize("name", [*ac.QC_EDGE, "marker_at_zero", "empty",
+                                  "no_markers", "all_markers"])
+def test_qc_walk_equals_plain(name):
+    """The one-program step's one walk (dense sums and the entry list),
+    then the order, host build, against accumulate_plain and pileup_plain
+    in every output; the list holds each entry once (no grid walk after
+    it); accumulate_pileup on the CPU is the plain pair."""
+    text, tables, planes, mapq, cap, mb = _step_case(name)
+    n_text = len(text)
+    want = acc.step_outputs(acc.accumulate_plain(tables, n_text, *planes),
+                             acc.pileup_plain(tables, n_text, *planes, mapq,
+                                              cap, mb))
+    got, listed = _host_accumulate_pileup(tables, n_text, *planes, mapq, cap,
+                                          mb)
+    _same(got, want, name)
+    assert list(got) == list(want)
+    _same(acc.accumulate_pileup(tables, n_text, *planes, mapq, cap, mb),
+          want, name)
+    pacp, in_reg = acc._plain_bases(tables, n_text, *planes)[:2]
+    on_mk = (in_reg & (tables.marker_id[pacp] >= 0)).reshape(-1)
+    assert sorted(listed.tolist()) == on_mk.nonzero()[:, 0].tolist()
+    n_entries = int(want["pileup_cnt"].sum())
+    assert len(listed) == n_entries
+    if name in ("empty", "no_markers", "no_eligible"):
+        assert n_entries == 0
+    if name == "no_markers":
+        assert int(want["n_base_mapped"]) > 0
+    if name == "all_markers":  # more than a walk block's buffer holds
+        assert n_entries > 3 * 1024
+    if name in ("mixed", "offsets"):  # more than 32 entries at a marker
+        assert int(want["pileup_cnt"].max()) > 32
+        assert int(want["pileup_ovf"]) > 0
+
+
+@pytest.mark.parametrize("name", list(ac.REF_EDGE))
+def test_ref_walk_adds_to_resident_sums(name):
+    """DeviceDenseStats' walk into resident sums, host build: the case's
+    reads in three chunks added to one output (zeroed once, by the
+    caller) equal the plain sums of the chunks, mod 2^32 as int32."""
+    spec, text, case = ac.edge_case(name, ref=True)
+    tables = ac.edge_tables(name, spec, text, "cpu")
+    t = {k: torch.from_numpy(np.asarray(v)) for k, v in case.items()}
+    B = len(case["lens"])
+    out = torch.zeros(acc.dense_size(tables.n_sites), dtype=torch.int32)
+    want = torch.zeros_like(out, dtype=torch.int64)
+    for lo, hi in ((0, B // 3), (B // 3, B // 2), (B // 2, B)):
+        c = {k: v[lo:hi] for k, v in t.items()}
+        args = (c["codes"], None, c["quals"], c["lens"], c["pos"],
+                c["strand"])
+        assert _host_dense(tables, len(text), acc.MODE_REF, *args,
+                           out=out) is out
+        want += acc.pack_dense_plain(acc.dense_accumulate_plain(
+            tables, len(text), c["pos"], c["strand"], c["codes"],
+            c["quals"], c["lens"]), tables.n_sites)
+    assert torch.equal(out, want.to(torch.int32))
+    assert int(acc.unpack_dense(out, tables.n_sites)["n_base_mapped"]) > 0
+
+
+class _Read:
+    def __init__(self, pos, strand, seq, qual):
+        self.pos, self.strand, self.len = pos, strand, len(seq)
+        self.seq, self.qual = seq, qual
+
+
+def _reads_of(case) -> list:
+    """A ref_case's reads as DeviceDenseStats.add takes them: codes and
+    phred + 33 characters as sequenced (strand 1 reverse-complemented)."""
+    out = []
+    for i, ln in enumerate(case["lens"]):
+        codes = case["codes"][i, :ln]
+        chars = case["quals"][i, :ln] + np.uint8(33)
+        if case["strand"][i]:
+            codes = np.where(codes < 4, 3 - codes, 4)[::-1]
+            chars = chars[::-1]
+        out.append(_Read(int(case["pos"][i]), int(case["strand"][i]),
+                         codes.astype(np.uint8), chars.astype(np.uint8)))
+    return out
+
+
+class _Collector:
+    """The arrays DeviceDenseStats adds into, and flush_dense."""
+
+    def __init__(self, S, dense_device=None):
+        self.sites = SimpleNamespace(**{k: np.zeros(S, np.int64)
+                                        for k in ("depth", "q20", "q30")})
+        for k in ("emp_rep_dist", "emp_cycle_dist", "mis_emp_rep_dist",
+                  "mis_emp_cycle_dist"):
+            setattr(self, k, np.zeros(256, np.int64))
+        self.dense_device = dense_device
+
+    def flush_dense(self):
+        self.dense_device.flush(self)
+
+    def arrays(self):
+        return [self.sites.depth, self.sites.q20, self.sites.q30,
+                self.emp_rep_dist, self.emp_cycle_dist,
+                self.mis_emp_rep_dist, self.mis_emp_cycle_dist]
+
+
+DQC_CHUNK = 512  # DeviceDenseStats' chunk in this test (4,096 in use)
+DQC_BATCHES = (1300, 700, 2100)  # reads a batch: several chunks each
+
+
+@pytest.mark.parametrize("drain_cells", [None, 3 * DQC_CHUNK * 150])
+def test_device_dense_stats_deferred(drain_cells):
+    """The port's DeviceDenseStats on the CPU: flushes deferred at each
+    batch end (flush_batch, as the driver makes them) and one drain at
+    the end give the collector's arrays exactly what a drain after every
+    batch gives, and what fastquick_tpu's DeviceDenseStats gives on the
+    same reads; with drain_cells lowered, drains inside the flushes change
+    nothing."""
+    from fastquick_tpu_torch.align import device_qc as tdq
+
+    rng = np.random.default_rng(12)
+    text, mpos = ac.world(rng, 6000, 10, 60)
+    batches = [_reads_of(ac.ref_case(rng, text, mpos, n, 150, wrap=0.02,
+                                     deep_markers=2, deep_reads=30))
+               for n in DQC_BATCHES]
+    tables = ac.edge_tables("chunk", (6000, 10, 60), text, "cpu")
+    S = tables.n_sites
+    idx = SimpleNamespace(l_pac=len(text))
+
+    def port(deferred: bool):
+        with mock.patch.object(tdq, "build_site_tables", lambda *a: tables), \
+                mock.patch.object(tdq, "_PAD_B", DQC_CHUNK), \
+                mock.patch.object(tdq, "DRAIN_CELLS",
+                                  drain_cells or tdq.DRAIN_CELLS):
+            stats = tdq.DeviceDenseStats(idx, None, None, "cpu")
+            coll = _Collector(S, stats)
+            for reads in batches:
+                for p in reads:
+                    stats.add(p)
+                if deferred:
+                    tdq.flush_batch(coll)
+                else:
+                    stats.flush(coll)
+            if deferred and drain_cells is None:  # all still on the device
+                assert not any(a.any() for a in coll.arrays())
+            if deferred:
+                coll.flush_dense()
+        return stats, coll
+
+    jt = jq.synthetic_site_tables(text, 10, 60)
+    with mock.patch.object(jq, "build_site_tables", lambda *a: jt), \
+            mock.patch.object(jdq, "_PAD_B", DQC_CHUNK):
+        jstats = jdq.DeviceDenseStats(idx, None, None)
+        want = _Collector(S)
+        for reads in batches:
+            for p in reads:
+                jstats.add(p)
+            jstats.flush(want)
+    assert want.sites.depth.sum() > 0 and want.mis_emp_rep_dist.sum() > 0
+
+    every, got_every = port(False)
+    once, got_once = port(True)
+    for g, e, w in zip(got_once.arrays(), got_every.arrays(), want.arrays()):
+        assert np.array_equal(g, w) and np.array_equal(e, w)
+    if drain_cells is None:
+        assert (every.drains, once.drains) == (len(DQC_BATCHES), 1)
+    else:  # drains inside the flushes: at most 3 chunks' cells a drain
+        chunks = sum(-(-n // DQC_CHUNK) for n in DQC_BATCHES)
+        assert once.drains >= -(-chunks // 3) > len(DQC_BATCHES)
