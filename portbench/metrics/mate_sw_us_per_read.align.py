@@ -1,0 +1,13 @@
+"""mate_sw_us_per_read.align: align/driver.py's `stage_t["mate-sw"]`
+(host clock, no synchronise) summed over the window's samples, in us a
+read."""
+
+STAGE = "mate-sw"
+
+
+def read(ctx):
+    r = ctx["readings"]
+    t = r.get("stage_t", {}).get(STAGE)
+    if t is None or not r.get("reads"):
+        return None
+    return t / r["reads"] * 1e6
