@@ -37,6 +37,7 @@ from ..align.opts import GapOpt, bwa_cal_maxdiff
 from ..index.builder import ReducedIndex
 from ..utils.bounds import search_bytes
 from ..utils.device import resolve_device
+from ..utils.spans import span
 from .fm import DeviceFM, width_finalize
 from .search_kernels import (
     A_MAX,
@@ -377,5 +378,6 @@ class BatchEngine:
                          k_l[i], l_l[i], sc_l[i])
                      for i in range(s, s + n_list[b])]
             p.n_aln = len(p.aln)
-        if fb_thread is not None:
-            fb_thread.join()
+        with span("search.redo_wait"):
+            if fb_thread is not None:
+                fb_thread.join()

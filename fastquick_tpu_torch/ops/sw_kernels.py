@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..kernels import build
+from ..utils.spans import span
 
 MATCH, MISMATCH, VS_N = 11, -19, -13
 GAP_OPEN, GAP_EXT = 26, 9
@@ -130,10 +131,12 @@ def sw_local_batch_device(jobs: list[tuple[np.ndarray, np.ndarray]],
     QL = max(-(-max(len(q) for _, q in jobs) // 128) * 128, 128)
 
     def run(refs, qs, rl, ql):
-        return sw_forward_batch(
-            torch.from_numpy(refs).to(dev), torch.from_numpy(qs).to(dev),
-            torch.from_numpy(rl).to(dev),
-            torch.from_numpy(ql).to(dev)).cpu().numpy()
+        # one device pass: the copies in, the kernel and the copy back
+        with span("sw.device"):
+            return sw_forward_batch(
+                torch.from_numpy(refs).to(dev), torch.from_numpy(qs).to(dev),
+                torch.from_numpy(rl).to(dev),
+                torch.from_numpy(ql).to(dev)).cpu().numpy()
 
     refs = np.zeros((n, RL), np.uint8)
     qs = np.zeros((n, QL), np.uint8)

@@ -6,6 +6,7 @@ kernel and with the scan path (``FQ_BS_PALLAS=2``).  Without ``--device
 cpu`` the port's ``align`` runs on CUDA and raises where there is none."""
 
 import filecmp
+import json
 
 import pytest
 
@@ -20,6 +21,22 @@ ALL_OUTPUTS = ("Summary", "DepthDist", "GCDist", "EmpRepDist",
                "EmpCycleDist", "RawInsertSizeDist",
                "AdjustedInsertSizeDist", "SexChromInfo", "Pileup", "vcf",
                "InsertSizeTable", "bam")
+
+# every span of one align call (fastquick_tpu_torch/utils/spans.py) and the
+# span it nests in: None for the call itself and for the spans of the stats
+# worker and the BAM writer
+SPANS = {"call": None, "call.setup": "call", "io+filter": "call",
+         "kmer.upload": "io+filter", "search": "call",
+         "search.redo_wait": "search", "pe": "call", "mate-sw": "call",
+         "sw.device": "mate-sw", "refine": "call", "wait.prefetch": "call",
+         "wait.stats": "call", "call.finish": "call", "stats+out": None,
+         "bam.write": None}
+# the main thread's spans directly inside `call`: they do not overlap
+# (`io+filter` also counts the prefetch thread's reads, which overlap them)
+MAIN_CHILDREN = [k for k, v in SPANS.items() if v == "call"]
+# the spans that portbench's *_us_per_read.align readers have read since
+# the port's first benchmark, under the same names
+METERED = ("io+filter", "search", "pe", "mate-sw", "stats+out")
 
 
 @pytest.fixture(scope="module")
@@ -103,3 +120,85 @@ def test_align_on_cuda_raises_without_cuda(world, monkeypatch):
         torch_main(["align", *world["args"], "--out_prefix",
                     str(world["tmp"] / "nocuda"), "--device_qc"])
     assert not (world["tmp"] / "nocuda.bam").exists()
+
+
+def test_stage_t_holds_every_span(outputs):
+    _, stats = outputs
+    st = stats["stage_t"]
+    assert set(SPANS) <= set(st), set(SPANS) - set(st)
+    assert set(METERED) <= set(st)
+    assert "stats-enq" not in st
+    assert all(v >= 0.0 for v in st.values())
+
+
+def test_spans_nest_in_their_parents(outputs):
+    _, stats = outputs
+    st = stats["stage_t"]
+    for child, parent in (("kmer.upload", "io+filter"),
+                          ("search.redo_wait", "search"),
+                          ("sw.device", "mate-sw")):
+        assert st[child] <= st[parent], (child, parent)
+    assert st["io+filter"] <= st["call"]
+    assert sum(st[k] for k in MAIN_CHILDREN if k != "io+filter") <= st["call"]
+
+
+# the traced align reads the world's first TRACED_PAIRS pairs with the
+# resident search's step cap at TRACED_STEP_CAP (the exact host redo takes
+# the reads it stops): the profiler records every torch op of the CPU
+# search, ~5 M events at the default cap of 1,536 steps, ~0.7 M at 128
+TRACED_PAIRS = 1000
+TRACED_STEP_CAP = 128
+
+
+@pytest.fixture(scope="module")
+def traced(world):
+    """The same align, on the world's first TRACED_PAIRS pairs, under a CPU
+    torch.profiler session: the fq. events of its Chrome trace, as (name,
+    thread, start, end) in us."""
+    import gzip
+
+    from fastquick_tpu_torch.cli import main as torch_main
+
+    tmp = world["tmp"]
+    args = list(world["args"])
+    for flag in ("--fastq_1", "--fastq_2"):
+        k = args.index(flag) + 1
+        part = tmp / f"traced{flag[-1]}.fq"
+        with gzip.open(args[k], "rt") as src, open(part, "w") as dst:
+            for _, line in zip(range(4 * TRACED_PAIRS), src):
+                dst.write(line)
+        args[k] = str(part)
+    with pytest.MonkeyPatch.context() as mp, torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        mp.setenv("FQ_BS_STEPCAP", str(TRACED_STEP_CAP))
+        assert torch_main(["align", *args, "--out_prefix",
+                           str(tmp / "traced"), "--device_qc",
+                           "--device", "cpu"]) == 0
+    path = tmp / "traced.trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as fh:
+        ev = json.load(fh)["traceEvents"]
+    path.unlink()
+    return [(e["name"][3:], e["tid"], float(e["ts"]),
+             float(e["ts"]) + float(e["dur"])) for e in ev
+            if e.get("cat") == "user_annotation"
+            and e.get("name", "").startswith("fq.")]
+
+
+def test_traced_main_thread_spans_lie_inside_the_call(traced):
+    calls = [e for e in traced if e[0] == "call"]
+    assert len(calls) == 1
+    _, tid, lo, hi = calls[0]
+    main = [e for e in traced if e[1] == tid]
+    assert {e[0] for e in main} >= {"call.setup", "io+filter", "search",
+                                    "pe", "mate-sw", "refine",
+                                    "wait.stats", "call.finish"}
+    assert all(lo <= e[2] <= e[3] <= hi for e in main)
+    kids = sorted(e[2:] for e in main if e[0] in MAIN_CHILDREN)
+    for (_, end), (start, _) in zip(kids, kids[1:]):
+        assert end <= start
+    for name, _, start, end in main:
+        parent = SPANS.get(name)
+        if parent not in (None, "call"):
+            assert any(p[0] == parent and p[2] <= start and end <= p[3]
+                       for p in main), name
