@@ -30,6 +30,7 @@ import torch
 from ..index.builder import ReducedIndex, load_index, read_param
 from ..params import ParamList
 from ..stats.collector import FileStat, StatCollector
+from ..stats.keyed_collector import KeyedStatCollector
 from ..utils.logging import error, notice, realtime
 from ..utils.spans import call, span
 from . import pe as _pe_mod
@@ -665,7 +666,7 @@ def _run_align(argv: list[str]) -> dict:
 
         contig_sizes, genome_size, n_size = load_contig_sizes(ref_path)
 
-        collector = StatCollector()
+        collector = KeyedStatCollector()
         collector.restore_vcf_sites(new_ref, opt)
         collector.set_genome_size(genome_size, n_size)
         if target_region != "Empty":
@@ -815,7 +816,7 @@ def run_merge(argv: list[str]) -> int:
     target_region = params["TARGET_REGION_PATH"]
     _, genome_size, n_size = load_contig_sizes(params["REFERENCE_PATH"])
 
-    collector = StatCollector()
+    collector = KeyedStatCollector()
     collector.restore_vcf_sites(new_ref, opt)
     collector.set_genome_size(genome_size, n_size)
     if target_region != "Empty":

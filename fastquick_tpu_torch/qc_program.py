@@ -133,7 +133,7 @@ def world_from_files(tmp, idx_prefix, fq1, fq2, fname1, fname2,
     from .index.builder import load_index, read_param
     from .ops.fm import DeviceFM
     from .ops.kmer import load_kmer_bitmaps
-    from .stats.collector import StatCollector
+    from .stats.keyed_collector import KeyedStatCollector
 
     dev_t = resolve_device(device)
     new_ref = f"{idx_prefix}.FASTQuick.fa"
@@ -145,7 +145,7 @@ def world_from_files(tmp, idx_prefix, fq1, fq2, fname1, fname2,
     opt.flank_long_len = params["LONG_FLANK_LENGTH"]
     popt = PeOpt()
     idx = load_index(new_ref)
-    collector = StatCollector()
+    collector = KeyedStatCollector()
     collector.restore_vcf_sites(new_ref, opt)
     tables = build_site_tables(idx, collector, opt, dev_t)
     fm = DeviceFM.build(idx.fm_fwd, idx.fm_rev, dev_t)
@@ -205,11 +205,12 @@ def write_product(prefix, acc, rows, names, world) -> list[str]:
     the product files (the same writers the align stage uses); the
     .InsertSizeTable rows are rendered from the per-pair fields.  Returns
     the written paths, sorted."""
-    from .stats.collector import FileStat, StatCollector
+    from .stats.collector import FileStat
     from .stats.device_merge import populate_from_device
+    from .stats.keyed_collector import KeyedStatCollector
 
     idx, opt = world["idx"], world["opt"]
-    collector = StatCollector()
+    collector = KeyedStatCollector()
     collector.restore_vcf_sites(world["new_ref"], opt)
     acc = {k: _numpy(v) for k, v in acc.items() if not k.startswith("_")}
     populate_from_device(collector, acc)
