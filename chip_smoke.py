@@ -787,32 +787,6 @@ def drand48_case(dev, rng, n: int) -> dict:
     return res
 
 
-def _pairing_work(occ0, occ1, a0, a1, ok) -> tuple:
-    """What pairing_sweep's kernel must do on these inputs, for its bound:
-    the valid entries, the reverse ones, the distinct packed words they
-    name, and the least compares that sort each pair's entries (log2 n!)."""
-    import math
-
-    import torch
-
-    n = n_valid = n_rev = n_words = 0
-    for occ, a in ((occ0, a0), (occ1, a1)):
-        P, K = occ["pos"].shape
-        c = occ["n_occ"].long().clamp(0, K) * ok.long()
-        valid = torch.arange(K, device=c.device)[None, :] < c[:, None]
-        row = torch.where(valid, occ["row"].long(), 0)
-        strand = (a[:, :, 0].long().gather(1, row) >> 18) & 1
-        used = torch.zeros(a.shape[:2], dtype=torch.long, device=c.device)
-        used.scatter_add_(1, row, valid.long())
-        n = n + c
-        n_valid += int(c.sum())
-        n_rev += int((valid & (strand == 1)).sum())
-        n_words += int((used > 0).sum())
-    n_cmp = float(torch.ceil(torch.lgamma(n.double() + 1) / math.log(2))
-                  .sum())
-    return n_valid, n_rev, n_words, n_cmp
-
-
 def pairing_case(dev, rng, P: int, K: int) -> dict:
     """The pairing kernel against pairing_sweep_plain on P pairs at
     occurrence cap K (testing/pairing_cases.py): every output field and
@@ -826,6 +800,7 @@ def pairing_case(dev, rng, P: int, K: int) -> dict:
     from fastquick_tpu_torch.ops.pe_device import (
         pairing_sweep,
         pairing_sweep_plain,
+        pairing_work,
         penalty_table,
     )
     from fastquick_tpu_torch.testing.pairing_cases import (
@@ -857,8 +832,10 @@ def pairing_case(dev, rng, P: int, K: int) -> dict:
     wrapper_ms = cuda_ms(lambda: pairing_sweep(*args), 3)
     table_ms = cuda_ms(lambda: penalty_table(args[7]), 3)
     plain_ms = cuda_ms(lambda: pairing_sweep_plain(*args), 1)
-    n_valid, n_rev, n_words, n_cmp = _pairing_work(*args[:4], args[6])
-    pen_len = penalty_table(args[7])[0].numel()
+    work = pairing_work(*args[:4], args[6], args[7])
+    n_valid, n_rev, n_words, pen_len = (int(work[k]) for k in (
+        "valid", "reverse", "words", "penalty_len"))
+    n_cmp = float(work["compares"])
     bms, by = pairing_bound(P, n_valid, n_rev, n_words, n_cmp, pen_len)
     out = dict(ms=ms, wrapper_ms=wrapper_ms, table_ms=table_ms,
                plain_ms=plain_ms,

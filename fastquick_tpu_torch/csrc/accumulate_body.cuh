@@ -8,13 +8,13 @@
 //
 // Two callers, one body (FqAccIn.mode):
 // - FQ_ACC_READ (ops/qc_full.qc_step_full): int32 planes in read
-//   orientation as bwa stores them: seqs reversed codes, rseqs reversed
-//   complement codes, quals in read order.  A base is read at its own
-//   index in the stored reversal (ragged_unreverse's, never materialised):
-//   k = min(len - 1 - j, L - 1); strand 1 takes rseqs[k] and quals[j],
-//   strand 0 seqs[k] and quals[k].  Quality clamped to 0..93, cycle
-//   clamp(len - 1 - j, 0, L) on strand 1, else j.  Only eligible rows
-//   count.
+//   orientation as bwa stores them: seqs reversed codes, rseqs the
+//   reverse complement (reference orientation on strand 1), quals in read
+//   order.  With k = min(len - 1 - j, L - 1), the index in the stored
+//   reversal (ragged_unreverse's, never materialised): strand 1 takes
+//   rseqs[j] and quals[k], strand 0 seqs[k] and quals[j].  Quality
+//   clamped to 0..93, cycle clamp(len - 1 - j, 0, L) on strand 1, else j.
+//   Only eligible rows count.
 // - FQ_ACC_REF (align/device_qc.DeviceDenseStats): uint8 codes and quals
 //   already in reference orientation (quals after - 33 with uint8 wrap),
 //   so quality is 0..255 as it comes; cycle len - 1 - j on strand 1, else
@@ -139,8 +139,8 @@ FQ_HD void fq_acc_read(const FqAccIn& a, const FqAccRow& r, int j,
   if (a.mode == FQ_ACC_READ) {
     // j < len, so len - 1 - j >= 0: ragged_unreverse's slot, its clamp
     const int k = fq_min(r.len - 1 - j, a.L - 1);
-    o.code = ((const int32_t*)r.code)[k];
-    o.bq = fq_clamp(((const int32_t*)r.qual)[r.rev ? j : k], 0, 93);
+    o.code = ((const int32_t*)r.code)[r.rev ? j : k];
+    o.bq = fq_clamp(((const int32_t*)r.qual)[r.rev ? k : j], 0, 93);
     o.cycle = r.rev ? fq_clamp(r.len - 1 - j, 0, a.L) : j;
   } else {
     o.code = ((const uint8_t*)r.code)[j];

@@ -120,11 +120,11 @@ def _plain_bases(tables, n_text, seqs, rseqs, quals, lens, eligible, pos,
     lens32 = lens.to(_i32)[:, None]
     cover = eligible[:, None] & (offs < lens32)
     pacp = torch.where(cover, pos[:, None] + offs, n_text).clamp(0, n_text)
-    # read bases / quals / cycles in reference orientation
+    # read bases / quals / cycles in reference orientation: a strand-1
+    # read's reverse complement is rseqs as stored, its qualities reversed
     rev = (strand == 1)[:, None]
-    ref_read = torch.where(rev, ragged_unreverse(rseqs, lens),
-                           ragged_unreverse(seqs, lens)).to(_i32)
-    ref_qual = torch.where(rev, quals, ragged_unreverse(quals, lens, fill=0))
+    ref_read = torch.where(rev, rseqs, ragged_unreverse(seqs, lens)).to(_i32)
+    ref_qual = torch.where(rev, ragged_unreverse(quals, lens, fill=0), quals)
     cycle = torch.where(rev, (lens32 - 1 - offs).clamp(0, L), offs)
     site = tables.site_idx[pacp]  # (B, L) int32
     in_reg = cover & (site >= 0)
@@ -435,8 +435,8 @@ def accumulate(tables, n_text, seqs, rseqs, quals, lens, eligible, pos,
     grid: depth, q20, q30 (S,), emp_rep, mis_emp_rep, emp_cycle,
     mis_emp_cycle (256,) and n_base_mapped (0-d), int32.
 
-    seqs, rseqs: (B, L) reversed and reversed-complement codes as bwa
-    stores them; quals: (B, L) phred in read orientation; lens, pos,
+    seqs, rseqs: (B, L) the reversed codes and the reverse complement as
+    bwa stores them; quals: (B, L) phred in read order; lens, pos,
     strand: (B,); eligible: (B,) bool.  CUDA tensors launch the walk
     (views of its one output), CPU tensors run accumulate_plain."""
     if seqs.device.type == "cpu":

@@ -28,6 +28,7 @@ inside and come out in the reference's dtypes (int32 values, bool flags).
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -316,6 +317,34 @@ def pairing_sweep(occ0, occ1, alns0, alns1, se0, se1, pair_ok,
     build.check(rc, "pairing")
     build.launch_counts["pairing"] += 1
     return sweep_outputs(se0, se1, *call.outputs)
+
+
+def pairing_work(occ0, occ1, alns0, alns1, pair_ok, ii) -> dict:
+    """What pairing_sweep's kernel must do on these inputs, for its bound
+    (utils/bounds.pairing_bound), as device scalars (nothing read back):
+    the pairs, the valid entries, the reverse ones, the distinct packed
+    words they name, the least compares that sort each pair's entries
+    (log2 n! a pair) and the penalty table's length (penalty_table's, from
+    ii without reading it)."""
+    P, K = occ0["pos"].shape
+    dev = occ0["pos"].device
+    n = 0
+    valid_n = rev_n = words_n = torch.zeros((), dtype=torch.long, device=dev)
+    for occ, a in ((occ0, alns0), (occ1, alns1)):
+        c = occ["n_occ"].long().clamp(0, K) * pair_ok.long()
+        valid = torch.arange(K, device=dev)[None, :] < c[:, None]
+        row = torch.where(valid, occ["row"].long(), 0)
+        strand = (a[:, :, 0].long().gather(1, row) >> 18) & 1
+        used = torch.zeros(a.shape[:2], dtype=torch.long, device=dev)
+        used.scatter_add_(1, row, valid.long())
+        n = n + c
+        valid_n = valid_n + c.sum()
+        rev_n = rev_n + (valid & (strand == 1)).sum()
+        words_n = words_n + (used > 0).sum()
+    compares = torch.ceil(torch.lgamma(n.double() + 1) / math.log(2)).sum()
+    pen_len = torch.where(ii[4] > 0.0, ii[5].long().clamp(min=0) + 1, 1)
+    return dict(pairs=P, valid=valid_n, reverse=rev_n, words=words_n,
+                compares=compares, penalty_len=pen_len)
 
 
 class SweepCall(NamedTuple):

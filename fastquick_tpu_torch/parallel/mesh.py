@@ -215,7 +215,8 @@ def make_sharded_qc_full_step(mesh: Mesh, fm: DeviceFM, tables: SiteTables,
                               md_table=None, pair_mode: bool = False,
                               kernel: str = "resident"):
     """The product step over the mesh: run(seqs, rseqs, quals, lens,
-    last_ii=None, fb_fill=None, times=None, return_per_read=False) takes
+    last_ii=None, fb_fill=None, times=None, return_per_read=False,
+    counts=None) takes
     this rank's rows (every rank the same count; the shards in rank order
     are the batch), the index and site tables replicated, and returns the
     merged accumulators, equal on every rank and to one device's step on
@@ -232,52 +233,51 @@ def make_sharded_qc_full_step(mesh: Mesh, fm: DeviceFM, tables: SiteTables,
     order; _ii, the histogram, its max length and _drand_state are the
     same on every rank and pass the sum untouched.  Every other
     accumulator is summed.  fb_fill: this rank's rows' fill; times gains
-    an "exchange" stage (the collectives and the merge); per_read stays
-    this rank's."""
+    an "exchange" stage (the collectives and the merge); per_read and
+    counts (qc_step_full's) stay this rank's."""
     axes = _axes(axis)
     inner_first = tuple(reversed(axes))
 
     def run(seqs, rseqs, quals, lens, last_ii=None, fb_fill=None,
-            times=None, return_per_read=False):
+            times=None, return_per_read=False, counts=None):
         out = qc_step_full(fm, tables, opt_args, seqs, rseqs, quals, lens,
                            bitmaps=bitmaps, thresh=thresh,
                            pileup_cap=pileup_cap, md_table=md_table,
                            pair_mode=pair_mode, last_ii=last_ii,
                            fb_fill=fb_fill, kernel=kernel, times=times,
-                           return_per_read=return_per_read, mesh=mesh,
-                           axis_names=inner_first)
+                           counts=counts, return_per_read=return_per_read,
+                           mesh=mesh, axis_names=inner_first)
         out, per_read = out if return_per_read else (out, None)
-        stage = _Stages(times, seqs.device)
-        carried = {k: out.pop(k) for k in ("_drand_state", "_ii",
-                                           "_isize_hist", "_isize_maxlen")
-                   if k in out}
-        if pair_mode:
-            gkeys = _gather(mesh, out.pop("_pair_keys"), axes)
-            rows = {k: _gather(mesh, v, axes).reshape(-1)
-                    for k, v in out.pop("_pair_rows").items()}
-        M = tables.n_markers
-        dev = out["pileup"].device
-        cnt = out["pileup_cnt"]
-        g = _gather(mesh, cnt, axes)  # (shards, M)
-        off = g[: mesh.shard_index(axes)].sum(0).long()  # my global base
-        cold = torch.arange(pileup_cap, device=dev)[None, :]
-        tgt = cold + off[:, None]
-        valid = cold < cnt.long()[:, None]
-        keep = valid & (tgt < pileup_cap)
-        prow = torch.arange(M, device=dev)[:, None].expand(M, pileup_cap)
-        shifted = torch.zeros((M, pileup_cap), dtype=out["pileup"].dtype,
-                              device=dev)
-        shifted.index_put_((prow[keep], tgt[keep]), out["pileup"][keep],
-                           accumulate=True)
-        out["pileup"] = shifted
-        out["pileup_ovf"] = out["pileup_ovf"] + (
-            valid & (tgt >= pileup_cap)).sum().to(out["pileup_ovf"].dtype)
-        out = _psum_all(mesh, out, axes)
-        if pair_mode:
-            out["n_pcr_dup"] = count_pcr_dups(gkeys.reshape(-1, 3))
-            out["_pair_rows"] = rows
-        out.update(carried)
-        stage("exchange")
+        with _Stages(times, seqs.device)("exchange"):
+            carried = {k: out.pop(k) for k in ("_drand_state", "_ii",
+                                               "_isize_hist", "_isize_maxlen")
+                       if k in out}
+            if pair_mode:
+                gkeys = _gather(mesh, out.pop("_pair_keys"), axes)
+                rows = {k: _gather(mesh, v, axes).reshape(-1)
+                        for k, v in out.pop("_pair_rows").items()}
+            M = tables.n_markers
+            dev = out["pileup"].device
+            cnt = out["pileup_cnt"]
+            g = _gather(mesh, cnt, axes)  # (shards, M)
+            off = g[: mesh.shard_index(axes)].sum(0).long()  # my global base
+            cold = torch.arange(pileup_cap, device=dev)[None, :]
+            tgt = cold + off[:, None]
+            valid = cold < cnt.long()[:, None]
+            keep = valid & (tgt < pileup_cap)
+            prow = torch.arange(M, device=dev)[:, None].expand(M, pileup_cap)
+            shifted = torch.zeros((M, pileup_cap), dtype=out["pileup"].dtype,
+                                  device=dev)
+            shifted.index_put_((prow[keep], tgt[keep]), out["pileup"][keep],
+                               accumulate=True)
+            out["pileup"] = shifted
+            out["pileup_ovf"] = out["pileup_ovf"] + (
+                valid & (tgt >= pileup_cap)).sum().to(out["pileup_ovf"].dtype)
+            out = _psum_all(mesh, out, axes)
+            if pair_mode:
+                out["n_pcr_dup"] = count_pcr_dups(gkeys.reshape(-1, 3))
+                out["_pair_rows"] = rows
+            out.update(carried)
         return (out, per_read) if return_per_read else out
 
     return run

@@ -49,10 +49,20 @@ from .ops.qc_full import (
     synthetic_site_tables,
 )
 from .parallel.mesh import local_rows, make_sharded_qc_full_step
+from .utils import spans
 from .utils.device import resolve_device
 
 _STATUS = ["PropPair", "PartialPair", "FwdOnly", "RevOnly", "NotPair",
            "LowQual"]
+
+# The last run_with_fill call (this rank's, on a mesh): "stage_t" the
+# seconds of every span of the call (utils/spans.py: ``program``, its
+# phases ``program.first_pass``, ``program.host_redo``,
+# ``program.fill_pass`` and the step's stages inside the passes, summed
+# over both), "counts" the batch's rows searched and first-pass fallback
+# rows and, when the call was given `times`, each pass's work
+# (``first_pass``, ``fill_pass``: qc_step_full's counts, read back once).
+LAST_RUN_STATS: dict = {}
 
 
 def tiny_index(n: int = 16384, seed: int = 0, device="cuda"):
@@ -263,10 +273,11 @@ def _numpy(v):
 
 def run_single(world, pileup_cap: int = 64, kernel: str = "resident",
                times: dict | None = None, fb_fill=None, pe_fill=None,
-               per_read: bool = False):
-    """The whole batch as one pair-mode step on the world's device.
-    Returns (stats, rows[, per_read]): the accumulators with n_pcr_dup
-    (tensors on the device) and the per-pair rows as numpy arrays."""
+               per_read: bool = False, counts: dict | None = None):
+    """The whole batch as one pair-mode step on the world's device
+    (times, counts: qc_step_full's).  Returns (stats, rows[, per_read]):
+    the accumulators with n_pcr_dup (tensors on the device) and the
+    per-pair rows as numpy arrays."""
     seqs, rseqs, quals, lens = world["arrays"]
     out = qc_step_full(world["fm"], world["tables"], world["opt_args"],
                        seqs, rseqs, quals, lens,
@@ -275,7 +286,7 @@ def run_single(world, pileup_cap: int = 64, kernel: str = "resident",
                        md_table=world["md_table"], pair_mode=True,
                        pileup_cap=pileup_cap, kernel=kernel, times=times,
                        fb_fill=fb_fill, pe_fill=pe_fill,
-                       return_per_read=per_read)
+                       return_per_read=per_read, counts=counts)
     stats, pr = out if per_read else (out, None)
     stats["n_pcr_dup"] = count_pcr_dups(stats.pop("_pair_keys"))
     rows = {k: v.cpu().numpy() for k, v in stats.pop("_pair_rows").items()}
@@ -307,17 +318,19 @@ def _shard(world, mesh):
 
 def mesh_stats(world, mesh=None, pileup_cap: int = 64,
                kernel: str = "resident", times: dict | None = None,
-               fb_fill=None, per_read: bool = False):
+               fb_fill=None, per_read: bool = False,
+               counts: dict | None = None):
     """The world's batch as one pair-mode step: run_single when mesh is
     None, else over the mesh's ranks (parallel/mesh.
     make_sharded_qc_full_step), this rank running its block of the rows
     (_shard; padding rows are all-N with length 0).  fb_fill: this rank's
-    rows' fill.  Returns (stats, rows[, per_read]) as run_single does: the
+    rows' fill; counts: this rank's step's.  Returns (stats, rows[,
+    per_read]) as run_single does: the
     merged accumulators with n_pcr_dup, the per-pair rows of the B // 2
     real pairs, and this rank's per-read flags."""
     if mesh is None:
         return run_single(world, pileup_cap, kernel, times, fb_fill,
-                          per_read=per_read)
+                          per_read=per_read, counts=counts)
     B, lo, nb = _shard(world, mesh)
 
     def local(a, fill):
@@ -334,7 +347,7 @@ def mesh_stats(world, mesh=None, pileup_cap: int = 64,
         md_table=world["md_table"], pair_mode=True, kernel=kernel)
     out = step(local(seqs, 4), local(rseqs, 4), local(quals, 0),
                local(lens, 0), fb_fill=fb_fill, times=times,
-               return_per_read=per_read)
+               return_per_read=per_read, counts=counts)
     stats, pr = out if per_read else (out, None)
     rows = {k: v[: B // 2].cpu().numpy()
             for k, v in stats.pop("_pair_rows").items()}
@@ -351,28 +364,78 @@ def run_with_fill(world, engine=None, pileup_cap: int = 64,
     rank redoes the fallback reads of its own rows and the second pass
     takes each rank's fill.  Returns (stats, rows, the first pass's
     fallback count).  times: the second pass's stages plus "first_pass"
-    and "host_redo" (seconds; this rank's)."""
+    and "host_redo" (seconds; this rank's); given, the passes' counters
+    are also read (LAST_RUN_STATS).  Each call runs in a span tally of its
+    own, published in LAST_RUN_STATS."""
     dev = world["device"]
     B, lo, nb = _shard(world, mesh)
-    t0 = time.perf_counter()
-    first, _, pr = mesh_stats(world, mesh, pileup_cap, kernel, per_read=True)
-    fb = pr["fallback"].cpu().numpy() != 0
-    t1 = time.perf_counter()
-    rows_idx = np.nonzero(fb)[0]
-    rows_idx = rows_idx[lo + rows_idx < B]  # a padding row has no read
-    reads = [copy.copy(world["reads"][lo + b]) for b in rows_idx]
-    if reads:
-        (engine or default_engine(world["idx"])).align_batch(reads,
-                                                             world["opt"])
-    fb_n, fb_rows = pack_host_hits(reads, rows_idx, nb)
-    fill = (torch.from_numpy(fb_n).to(dev), torch.from_numpy(fb_rows).to(dev))
-    t2 = time.perf_counter()
-    stats, rows = mesh_stats(world, mesh, pileup_cap, kernel, times=times,
-                             fb_fill=fill)
+    work = None if times is None else {"first_pass": {}, "fill_pass": {}}
+    with spans.call("program") as tally:
+        t0 = time.perf_counter()
+        with spans.span("program.first_pass"):
+            first, _, pr = mesh_stats(
+                world, mesh, pileup_cap, kernel, per_read=True,
+                counts=None if work is None else work["first_pass"])
+            fb = pr["fallback"].cpu().numpy() != 0
+            n_reads, n_filtered, n_fb = torch.stack(
+                [first[k] for k in ("n_reads", "n_filtered",
+                                    "n_fallback")]).tolist()
+        t1 = time.perf_counter()
+        with spans.span("program.host_redo"):
+            rows_idx = np.nonzero(fb)[0]
+            rows_idx = rows_idx[lo + rows_idx < B]  # a padding row: no read
+            reads = [copy.copy(world["reads"][lo + b]) for b in rows_idx]
+            if reads:
+                (engine or default_engine(world["idx"])).align_batch(
+                    reads, world["opt"])
+            fb_n, fb_rows = pack_host_hits(reads, rows_idx, nb)
+            fill = (torch.from_numpy(fb_n).to(dev),
+                    torch.from_numpy(fb_rows).to(dev))
+        t2 = time.perf_counter()
+        with spans.span("program.fill_pass"):
+            stats, rows = mesh_stats(
+                world, mesh, pileup_cap, kernel, times=times, fb_fill=fill,
+                counts=None if work is None else work["fill_pass"])
     if times is not None:
         times["first_pass"] = t1 - t0
         times["host_redo"] = t2 - t1
-    return stats, rows, int(first["n_fallback"])
+    counts = dict(rows_searched=n_reads - n_filtered,
+                  first_pass_fallback=n_fb)
+    if work is not None:
+        counts.update(_read_back(work))
+    LAST_RUN_STATS.clear()
+    LAST_RUN_STATS.update(stage_t=tally.seconds(), counts=counts)
+    return stats, rows, n_fb
+
+
+def _read_back(tree):
+    """tree (dicts and lists) with its device scalars read to the host in
+    one copy: ints, or floats where the scalar is."""
+    found: list = []
+
+    def collect(x):
+        if isinstance(x, dict):
+            x = list(x.values())
+        if isinstance(x, list):
+            for v in x:
+                collect(v)
+        elif isinstance(x, torch.Tensor):
+            found.append(x)
+
+    def build(x, vals):
+        if isinstance(x, dict):
+            return {k: build(v, vals) for k, v in x.items()}
+        if isinstance(x, list):
+            return [build(v, vals) for v in x]
+        if isinstance(x, torch.Tensor):
+            v = next(vals)
+            return v if x.is_floating_point() else int(v)
+        return x
+
+    collect(tree)
+    vals = torch.stack([t.double().reshape(()) for t in found]).tolist() \
+        if found else []
+    return build(tree, iter(vals))
 
 
 def _host(v):

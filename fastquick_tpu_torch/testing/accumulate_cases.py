@@ -187,10 +187,10 @@ def qc_case(rng: np.random.Generator, text, mpos, B: int, L: int, *,
             mism: float = 0.01, n_rate: float = 0.002,
             pileup_cap: int = 64, marker_base: bool = False,
             first: tuple = ()) -> dict:
-    """One batch of the one-program step's accumulation inputs.  Strand 1
-    rows store the reference segment as rseqs (so that the step reads it
-    back as the reference), strand 0 rows as seqs; quals in read order,
-    q_range inclusive; marker_base: random slot offsets 0..cap + 2 (some
+    """One batch of the one-program step's accumulation inputs.  A row
+    is bwa's store of a read that is the reference segment (strand 0) or
+    its reverse complement (strand 1): seqs the read reversed, rseqs its
+    reverse complement; quals in read order, q_range inclusive; marker_base: random slot offsets 0..cap + 2 (some
     past the cap) instead of none; first: _placements'."""
     M = len(mpos)
     lens, pos, strand = _placements(rng, len(text), mpos, B, L, ragged,
@@ -204,8 +204,8 @@ def qc_case(rng: np.random.Generator, text, mpos, B: int, L: int, *,
                      rng.integers(q_range[0], q_range[1] + 1, (B, L)),
                      0).astype(np.int32)
     return dict(
-        seqs=_store(np.where(rev, comp, ref), lens),
-        rseqs=_store(np.where(rev, ref, comp), lens), quals=quals,
+        seqs=np.where(rev, comp, _store(ref, lens)),
+        rseqs=np.where(rev, ref, _store(comp, lens)), quals=quals,
         lens=lens, pos=pos, strand=strand,
         eligible=rng.random(B) < p_eligible,
         mapq=rng.integers(0, mapq_max + 1, B).astype(np.int64),

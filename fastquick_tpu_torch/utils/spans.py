@@ -1,11 +1,13 @@
-"""Named host spans of one ``align`` call, on the profiler's clock.
+"""Named host spans of one call of the port, on the profiler's clock: an
+``align`` call, or a call of the one-program step's recipe
+(``qc_program.run_with_fill``).
 
 ``with span(name):`` adds the span's wall time (two ``time.perf_counter``
 reads) into the tally of the call in progress, under the tally's lock, from
 whichever thread the work runs on: the main thread, the prefetch and stats
 threads the call starts, the BAM writer.  A span opened outside any call
-(the one-program step, bench.py) adds to no tally.  Spans nest, and a
-child's time also counts in its parent.
+(bench.py, a step run alone) adds to no tally.  Spans nest, and a child's
+time also counts in its parent.
 
 While a ``torch.profiler`` session records, each span also opens
 ``record_function("fq." + name)`` on its own thread, so the spans land in
@@ -45,7 +47,7 @@ class Tally:
             return dict(self._seconds)
 
 
-# the tally of the align call in progress (one runs at a time in a process)
+# the tally of the call in progress (one runs at a time in a process)
 _current: Tally | None = None
 
 
@@ -64,14 +66,15 @@ def span(name: str):
 
 
 @contextmanager
-def call():
-    """One align call: a fresh tally that its spans add into, yielded,
-    under the call's own span ``call``."""
+def call(name: str = "call"):
+    """One call (align's ``call``, the one-program recipe's ``program``): a
+    fresh tally that its spans add into, yielded, under the call's own span
+    `name`."""
     global _current
-    tally = Tally()
+    outer, tally = _current, Tally()
     _current = tally
     try:
-        with span("call"):
+        with span(name):
             yield tally
     finally:
-        _current = None
+        _current = outer

@@ -38,6 +38,8 @@ from fastquick_tpu_torch.ops import accumulate as acc  # noqa: E402
 from fastquick_tpu_torch.ops import qc_full as tq  # noqa: E402
 from fastquick_tpu_torch.testing import accumulate_cases as ac  # noqa: E402
 
+import qc_step_oracle as qso  # noqa: E402
+
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
                                 reason="needs g++")
 
@@ -178,8 +180,9 @@ def _stub_step_inputs(case, n_text):
 
 @pytest.mark.parametrize("name", list(ac.QC_EDGE))
 def test_qc_step_matches_jax(name):
-    """fastquick_tpu's qc_step_full against the port's (on the CPU, the
-    plain versions), both with the search stubbed: every accumulator;
+    """fastquick_tpu's qc_step_full (given the reads as align --device_qc
+    orients them, tests/qc_step_oracle.py) against the port's (on the CPU,
+    the plain versions), both with the search stubbed: every accumulator;
     then the host build on the inputs the port's step handed its
     accumulate and pileup wrappers."""
     spec, text, case = ac.edge_case(name)
@@ -197,8 +200,9 @@ def test_qc_step_matches_jax(name):
     jt = jq.synthetic_site_tables(text, spec[1], spec[2])
     jmb = None if mb is None else jnp.asarray(mb)
     with mock.patch.object(jq, "_search_kernel", jax_search):
-        # one compiled program (eager ops compile one by one: ~10x longer)
-        want = jax.jit(lambda *a: jq.qc_step_full(
+        # one compiled program (eager ops compile one by one: ~10x longer);
+        # the planes relaid as fastquick_tpu's accumulation reads them
+        want = jax.jit(lambda *a: qso.step()(
             fm, jt, opt_args, *a, pileup_cap=cap, marker_base=jmb))(
                 *(jnp.asarray(a) for a in planes))
 

@@ -33,6 +33,8 @@ from fastquick_tpu.align.opts import GapOpt  # noqa: E402
 from fastquick_tpu_torch.parallel.mesh import spawn  # noqa: E402
 from fastquick_tpu_torch.testing import mesh_cases  # noqa: E402
 
+import qc_step_oracle as qso  # noqa: E402
+
 from test_qc_full import (  # noqa: E402
     make_pair_reads,
     make_ragged_reads,
@@ -168,7 +170,8 @@ def test_exact_step_matches_jax(world, runs, layout):
 @pytest.mark.parametrize("layout", list(LAYOUTS))
 def test_full_step_matches_jax_and_single(world, runs, layout):
     """2 ranks: the pair world (duplicates, insert sizes, rows); 2 x 2: the
-    ragged single-end world."""
+    ragged single-end world.  fastquick_tpu's step takes each read as
+    align --device_qc orients it (tests/qc_step_oracle.py)."""
     from fastquick_tpu.parallel.mesh import make_sharded_qc_full_step
 
     _, dev, tables, fm_arrays = world
@@ -177,7 +180,7 @@ def test_full_step_matches_jax_and_single(world, runs, layout):
     step = make_sharded_qc_full_step(
         mesh, fm_arrays, tables, case["opt_args"], axis=axis,
         md_table=jnp.asarray(case["md"]), pair_mode=case["pair_mode"])
-    want = step(*_put(mesh, axis, case["arrays"]))
+    want = step(*_put(mesh, axis, qso.relay(*case["arrays"])))
     single = runs[layout]["single"][1]
     for r, res in enumerate(runs[layout]["ranks"]):
         got = res[2]

@@ -29,6 +29,8 @@ from fastquick_tpu_torch import qc_program as qp  # noqa: E402
 from fastquick_tpu_torch.parallel.mesh import spawn  # noqa: E402
 from fastquick_tpu_torch.testing import mesh_cases  # noqa: E402
 
+import qc_step_oracle as qso  # noqa: E402
+
 from test_drand48_qc import world as drand_world  # noqa: E402,F401
 from test_pe_occ_overflow import world as occ_world  # noqa: E402,F401
 from test_pe_qc_differential import _load, _read_pairs  # noqa: E402
@@ -74,7 +76,8 @@ def _jax_step(world, opt_args, md, mesh, axis, arrays, fb_fill=None):
                                      pair_mode=True)
     fill = None if fb_fill is None else tuple(jnp.asarray(a)
                                               for a in fb_fill)
-    return step(*(jnp.asarray(a) for a in arrays), fb_fill=fill)
+    # each read as align --device_qc orients it (tests/qc_step_oracle.py)
+    return step(*qso.relay(*arrays), fb_fill=fill)
 
 
 def _check(want, ranks, single, n_pairs):

@@ -21,6 +21,8 @@ from fastquick_tpu.align.opts import G_LOG_N, GapOpt, PeOpt  # noqa: E402
 from fastquick_tpu.ops import pe_device as dpe  # noqa: E402
 from fastquick_tpu_torch.ops import pe_device as tpe  # noqa: E402
 
+import qc_step_oracle as qso  # noqa: E402
+
 from test_pe_device import _R, _pack_rows, _world  # noqa: E402
 from test_pe_rescue_device import world as rescue_world  # noqa: E402,F401
 
@@ -220,7 +222,8 @@ def test_sweep_without_pairs_changes_nothing():
 def test_rescue_world_pe_fill_matches_jax(rescue_world):  # noqa: F811
     """The rescue world: the first pass, then the host's rescue and refine
     of candidate pairs (test_pe_rescue_device's recipe) injected as
-    pe_fill into both packages' second pass."""
+    pe_fill into both packages' second pass (fastquick_tpu's given each
+    read as align --device_qc orients it, tests/qc_step_oracle.py)."""
     from fastquick_tpu.align.core import BWA_TYPE_UNIQUE
     from fastquick_tpu.align.pe import (BWA_TYPE_MATESW, BWA_TYPE_NO_MATCH,
                                         SAM_FPP, bwa_paired_sw,
@@ -233,7 +236,8 @@ def test_rescue_world_pe_fill_matches_jax(rescue_world):  # noqa: F811
     from test_torch_qc_full import assert_same
     from test_torch_qc_program import port_world
 
-    _, acc1 = _device_run(rescue_world)
+    with qso.oriented():
+        _, acc1 = _device_run(rescue_world)
     w = port_world(rescue_world)
     stats1, rows_t1 = qp.run_single(w)
     assert_same({k: v for k, v in acc1.items()}, stats1, rows_t1)
@@ -279,8 +283,9 @@ def test_rescue_world_pe_fill_matches_jax(rescue_world):  # noqa: F811
     assert n_resc >= 8 and len(inj) > n_resc
     inj = sorted(inj)
     fill = pack_pe_fill([(b0[i], b1[i]) for i in inj], inj, P)
-    _, acc = _device_run(rescue_world,
-                         pe_fill={k: jnp.asarray(v) for k, v in fill.items()})
+    with qso.oriented():
+        _, acc = _device_run(rescue_world, pe_fill={
+            k: jnp.asarray(v) for k, v in fill.items()})
     got, rows = qp.run_single(w, pe_fill={k: _t(v) for k, v in
                                           fill.items()})
     assert_same(acc, got, rows)

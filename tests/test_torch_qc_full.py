@@ -2,7 +2,9 @@
 on the CPU) against fastquick_tpu's, on the worlds of tests/
 test_qc_full.py: the ragged single-end world and the paired-end world
 with seeded duplicates.  The same reads, made from a seed with numpy, go
-through both; every accumulator must be identical in value and dtype,
+through both (fastquick_tpu's given each read as align --device_qc
+orients it, tests/qc_step_oracle.py); every accumulator must be
+identical in value and dtype,
 and so must every per-pair row field, n_pcr_dup and the insert-size
 estimate (its floats within 1e-6 relative)."""
 
@@ -19,6 +21,8 @@ from fastquick_tpu.ops import qc_full as jq  # noqa: E402
 from fastquick_tpu_torch import qc_program as qp  # noqa: E402
 from fastquick_tpu_torch.ops import qc_full as tq  # noqa: E402
 from fastquick_tpu_torch.ops.fm import DeviceFM  # noqa: E402
+
+import qc_step_oracle as qso  # noqa: E402
 
 from test_qc_full import (  # noqa: E402
     make_pair_reads,
@@ -87,9 +91,8 @@ def _both(world, reads, **kw):
     from fastquick_tpu.align.opts import GapOpt
 
     md = md_table_for(L, GapOpt())
-    want = jq.qc_step_full(fm_arrays, tables, opt_args,
-                           *(jnp.asarray(a) for a in reads), md_table=md,
-                           **kw)
+    want = qso.step()(fm_arrays, tables, opt_args,
+                      *(jnp.asarray(a) for a in reads), md_table=md, **kw)
     got = tq.qc_step_full(port_fm(dev), port_tables(tables), opt_args,
                           *(torch.from_numpy(a) for a in reads),
                           md_table=torch.from_numpy(np.asarray(md)), **kw)

@@ -14,8 +14,12 @@ fastquick_tpu's step on the same files:
 - the product files qc_program.write_product writes, byte for byte
   against __graft_entry__._write_product.
 
-Every accumulator, n_pcr_dup and every per-pair row field must be
-identical; the insert-size estimate's floats within 1e-6 relative."""
+fastquick_tpu's step is given each read as align --device_qc orients it
+(tests/qc_step_oracle.py).  Every accumulator, n_pcr_dup and every
+per-pair row field must be identical; the insert-size estimate's floats
+within 1e-6 relative.  On the drand48 world, EmpRepDist, EmpCycleDist and
+Pileup are also held to what align --device_qc's collector writes for the
+step's placements (testing/collector_oracle.py)."""
 
 import filecmp
 import os
@@ -30,6 +34,11 @@ import torch  # noqa: E402
 torch.set_num_threads(1)  # one intra-op thread per test worker
 
 from fastquick_tpu_torch import qc_program as qp  # noqa: E402
+from fastquick_tpu_torch.testing.collector_oracle import (  # noqa: E402
+    align_products,
+)
+
+import qc_step_oracle as qso  # noqa: E402
 
 from test_drand48_qc import world as drand_world  # noqa: E402,F401
 from test_pe_occ_overflow import _device_run as occ_run  # noqa: E402
@@ -62,16 +71,34 @@ RESIDENT_OPTS = dict(pool=512, step_cap=768, chain=1, inner=32)
 @pytest.fixture(scope="module")
 def drand_ref(drand_world):  # noqa: F811
     """The reference's step on the 128 pairs at pool 512, cap 768."""
-    return _accs(drand_world, None, 0, pool=512, step_cap=768)
+    with qso.oriented():
+        return _accs(drand_world, None, 0, pool=512, step_cap=768)
+
+
+ALIGN_HELD = ("EmpRepDist", "EmpCycleDist", "Pileup")
+
+
+def same_as_align(stats, rows, w, tmp_path):
+    """EmpRepDist, EmpCycleDist and Pileup of the step byte-identical to
+    align --device_qc's collector's on the step's placements."""
+    got = qp.write_product(str(tmp_path / "step"), stats, rows, w["names"],
+                           w)
+    want = align_products(str(tmp_path / "align"), rows, w)
+    for sfx in ALIGN_HELD:
+        g = next(f for f in got if f.endswith("." + sfx))
+        a = next(f for f in want if f.endswith("." + sfx))
+        assert filecmp.cmp(g, a, shallow=False), sfx
 
 
 @pytest.mark.parametrize("kernel", ["resident", "scan"])
-def test_drand48_world_matches_jax(drand_world, drand_ref, kernel):  # noqa: F811
+def test_drand48_world_matches_jax(drand_world, drand_ref,  # noqa: F811
+                                   kernel, tmp_path):
     w = port_world(drand_world, N_PAIRS, **RESIDENT_OPTS)
     stats, rows = qp.run_single(w, kernel=kernel)
     assert_same(drand_ref, stats, rows)
     assert int(stats["n_pcr_dup"]) == int(drand_ref["n_pcr_dup"])
     assert int(drand_ref["n_mapped"]) > 0
+    same_as_align(stats, rows, w, tmp_path)
 
 
 def test_product_files_match_graft_entry(drand_world, drand_ref,  # noqa: F811
@@ -94,6 +121,7 @@ def test_product_files_match_graft_entry(drand_world, drand_ref,  # noqa: F811
     diffs = [g for g, r in zip(got, want)
              if not filecmp.cmp(g, r, shallow=False)]
     assert not diffs, diffs
+    same_as_align(stats, rows, w, tmp_path)
 
 
 def test_fill_pass_matches_jax(drand_world):  # noqa: F811
@@ -107,8 +135,9 @@ def test_fill_pass_matches_jax(drand_world):  # noqa: F811
 
     opts = dict(RESIDENT_OPTS, pool=96)
     w = port_world(drand_world, N_PAIRS, **opts)
-    want1, pr = _accs(drand_world, None, 0, pool=96, step_cap=768,
-                      per_read=True)
+    with qso.oriented():
+        want1, pr = _accs(drand_world, None, 0, pool=96, step_cap=768,
+                          per_read=True)
     got1, rows1, pr_t = qp.run_single(w, per_read=True)
     fb_mask = np.asarray(pr["fallback"]) != 0
     assert fb_mask.any(), "pool=96 forced no fallback; test is vacuous"
@@ -124,7 +153,9 @@ def test_fill_pass_matches_jax(drand_world):  # noqa: F811
     rows_idx = [b for b in range(len(flat)) if fb_mask[b]]
     fill = pack_host_hits([flat[b] for b in rows_idx], rows_idx,
                           fb_mask.shape[0])
-    want = _accs(drand_world, None, 0, pool=96, step_cap=768, fb_fill=fill)
+    with qso.oriented():
+        want = _accs(drand_world, None, 0, pool=96, step_cap=768,
+                     fb_fill=fill)
     times = {}
     got, rows, n_fb = qp.run_with_fill(w, engine=THostEngine(w["idx"]),
                                        times=times)
@@ -172,7 +203,8 @@ def test_bitmaps_chain4_matches_jax(drand_world):  # noqa: F811
 
     @jax.jit
     def step(bm, s, r, q, ln):
-        return qc_step_full(fm, tables, opt_args, s, r, q, ln, bitmaps=bm,
+        return qso.step(qc_step_full)(fm, tables, opt_args, s, r, q, ln,
+                                      bitmaps=bm,
                             thresh=kmer.thresh, md_table=md_t,
                             pair_mode=True, return_per_read=True)
 
@@ -193,13 +225,15 @@ def test_bitmaps_chain4_matches_jax(drand_world):  # noqa: F811
 def test_occ_overflow_world_matches_jax(occ_world):  # noqa: F811
     """Repeat pairs past k_occ = 32 occurrences take the second pairing
     pass (k_occ2 = 512): pairs, rows and counters as the reference's."""
-    _, want = occ_run(occ_world, k_occ2=512)
+    with qso.oriented():
+        _, want = occ_run(occ_world, k_occ2=512)
     w = port_world(occ_world, k_occ2=512)
     stats, rows = qp.run_single(w)
     assert_same(want, stats, rows)
     assert int(stats["n_pcr_dup"]) == int(want["n_pcr_dup"])
     assert int(want["n_pair_ovf"]) == 0
-    _, want32 = occ_run(occ_world, k_occ2=32)
+    with qso.oriented():
+        _, want32 = occ_run(occ_world, k_occ2=32)
     w["opt_args"]["k_occ2"] = 32
     stats32, rows32 = qp.run_single(w)
     assert_same(want32, stats32, rows32)

@@ -36,6 +36,17 @@ def test_a_span_outside_a_call_adds_to_no_tally():
     assert set(tally.seconds()) == {"call"}
 
 
+def test_a_call_inside_a_call_has_its_own_tally():
+    with spans.call() as outer:
+        with spans.call("program") as inner:
+            with spans.span("program.fill_pass"):
+                pass
+        with spans.span("after"):
+            pass
+    assert set(inner.seconds()) == {"program", "program.fill_pass"}
+    assert set(outer.seconds()) == {"call", "after"}
+
+
 def test_threads_the_call_starts_add_into_its_tally():
     with spans.call() as tally:
         def work():
