@@ -33,7 +33,6 @@ rows; rank 0 writes the files):
 from __future__ import annotations
 
 import contextlib
-import copy
 import glob
 import time
 
@@ -41,10 +40,10 @@ import numpy as np
 import torch
 
 from .align.opts import GapOpt, PeOpt, bwa_cal_maxdiff
+from .ops import host_redo
 from .ops.qc_full import (
     build_site_tables,
     count_pcr_dups,
-    pack_host_hits,
     qc_step_full,
     synthetic_site_tables,
 )
@@ -59,8 +58,11 @@ _STATUS = ["PropPair", "PartialPair", "FwdOnly", "RevOnly", "NotPair",
 # seconds of every span of the call (utils/spans.py: ``program``, its
 # phases ``program.first_pass``, ``program.host_redo``,
 # ``program.fill_pass`` and the step's stages inside the passes, summed
-# over both), "counts" the batch's rows searched and first-pass fallback
-# rows and, when the call was given `times`, each pass's work
+# over both; ``program.host_redo.native`` the native engine's search in
+# the redo), "counts" the batch's rows searched, first-pass fallback rows,
+# the rows the redo's exact engine took (``redo_rows``) and, of them, the
+# rows its Python oracle took (``redo_oracle_rows``) and, when the call
+# was given `times`, each pass's work
 # (``first_pass``, ``fill_pass``: qc_step_full's counts, read back once).
 LAST_RUN_STATS: dict = {}
 
@@ -138,7 +140,8 @@ def world_from_files(tmp, idx_prefix, fq1, fq2, fname1, fname2,
     dropped stay all-N, so unmapped).  L: the padded read length.
     bitmaps: also upload the k-mer filter's bitmaps (6 x 512 MiB), which
     run_single then applies on the device.  The returned dict keeps the
-    reads (``reads``, in row order) for run_with_fill's host redo."""
+    reads (``reads``, in row order) and their host planes (``host_rows``)
+    for run_with_fill's host redo."""
     from .align.seqs import FastqReader, read_batch
     from .index.builder import load_index, read_param
     from .ops.fm import DeviceFM
@@ -198,12 +201,15 @@ def world_from_files(tmp, idx_prefix, fq1, fq2, fname1, fname2,
                 "drand48": True}
     arrays = tuple(torch.from_numpy(a).to(dev_t)
                    for a in (seqs, rseqs, quals, lens))
+    # the host redo's copy of the planes (ops/host_redo.host_rows)
+    host_rows = dict(reads=reads, planes=np.stack([seqs, rseqs], 1).astype(
+        np.uint8), lens=lens, filtered=np.array([p.filtered for p in reads]))
     world = dict(tmp=tmp, idx=idx, opt=opt, new_ref=new_ref, tables=tables,
                  fm=fm, opt_args=opt_args,
                  md_table=torch.from_numpy(md_np).to(dev_t), arrays=arrays,
-                 names=names, reads=reads, n_pairs=len(b0),
-                 n_base=sum(p.full_len for p in b0 + b1), fname1=fname1,
-                 fname2=fname2, device=dev_t)
+                 names=names, reads=reads, host_rows=host_rows,
+                 n_pairs=len(b0), n_base=sum(p.full_len for p in b0 + b1),
+                 fname1=fname1, fname2=fname2, device=dev_t)
     if bitmaps:
         world["bitmaps"] = load_kmer_bitmaps(idx.kmer.byte_bitmaps(), dev_t)
         world["thresh"] = idx.kmer.thresh
@@ -293,19 +299,6 @@ def run_single(world, pileup_cap: int = 64, kernel: str = "resident",
     return (stats, rows, pr) if per_read else (stats, rows)
 
 
-def default_engine(idx):
-    """The exact engine for fallback reads: native, else host (when the
-    native aligner's library is unavailable)."""
-    try:
-        from .align.engine import NativeEngine
-
-        return NativeEngine(idx)
-    except RuntimeError:
-        from .align.engine import HostEngine
-
-        return HostEngine(idx)
-
-
 def _shard(world, mesh):
     """(B, start, rows) of this rank's block of the world's B rows, padded
     at the end of the batch to a multiple of 2 * mesh.size so that no pair
@@ -358,17 +351,18 @@ def run_with_fill(world, engine=None, pileup_cap: int = 64,
                   kernel: str = "resident", times: dict | None = None,
                   mesh=None):
     """The two-dispatch recipe: run the step once, redo its fallback reads
-    with `engine` (default_engine), pack their hit lists (pack_host_hits)
-    and run again with them as fb_fill, so every read carries exact hits
-    and the drand48 stream consumes them in read order.  On a mesh each
-    rank redoes the fallback reads of its own rows and the second pass
-    takes each rank's fill.  Returns (stats, rows, the first pass's
+    with `engine` (host_redo.default_engine), pack their hit lists
+    (ops/host_redo: as arrays for a NativeEngine, through Read objects for
+    another engine) and run again with them as fb_fill, so every read
+    carries exact hits and the drand48 stream consumes them in read
+    order.  On a mesh each rank redoes the fallback reads of its own rows
+    and the second pass takes each rank's fill.  Returns (stats, rows, the first pass's
     fallback count).  times: the second pass's stages plus "first_pass"
     and "host_redo" (seconds; this rank's); given, the passes' counters
     are also read (LAST_RUN_STATS).  Each call runs in a span tally of its
     own, published in LAST_RUN_STATS."""
     dev = world["device"]
-    B, lo, nb = _shard(world, mesh)
+    B, lo, _ = _shard(world, mesh)
     work = None if times is None else {"first_pass": {}, "fill_pass": {}}
     with spans.call("program") as tally:
         t0 = time.perf_counter()
@@ -382,15 +376,7 @@ def run_with_fill(world, engine=None, pileup_cap: int = 64,
                                     "n_fallback")]).tolist()
         t1 = time.perf_counter()
         with spans.span("program.host_redo"):
-            rows_idx = np.nonzero(fb)[0]
-            rows_idx = rows_idx[lo + rows_idx < B]  # a padding row: no read
-            reads = [copy.copy(world["reads"][lo + b]) for b in rows_idx]
-            if reads:
-                (engine or default_engine(world["idx"])).align_batch(
-                    reads, world["opt"])
-            fb_n, fb_rows = pack_host_hits(reads, rows_idx, nb)
-            fill = (torch.from_numpy(fb_n).to(dev),
-                    torch.from_numpy(fb_rows).to(dev))
+            fill, redo = host_redo.fill(world, engine, fb, lo, B, dev)
         t2 = time.perf_counter()
         with spans.span("program.fill_pass"):
             stats, rows = mesh_stats(
@@ -400,7 +386,7 @@ def run_with_fill(world, engine=None, pileup_cap: int = 64,
         times["first_pass"] = t1 - t0
         times["host_redo"] = t2 - t1
     counts = dict(rows_searched=n_reads - n_filtered,
-                  first_pass_fallback=n_fb)
+                  first_pass_fallback=n_fb, **redo)
     if work is not None:
         counts.update(_read_back(work))
     LAST_RUN_STATS.clear()
@@ -460,9 +446,9 @@ def mesh_job(mesh, spec: dict) -> dict:
     idx_prefix, fq1, fq2), device, L, bitmaps, pileup_cap, out_dir (rank
     0 writes each run's product files there, prefixed by its name),
     engine ("native": the fill's exact redo is the native engine's, else
-    default_engine's), check_kernels (hold each pairing sweep and each
-    accumulation (accumulate_pileup) of a run to the plain versions on
-    its inputs, after the run) and runs, a list of
+    host_redo.default_engine's), check_kernels (hold each pairing sweep
+    and each accumulation (accumulate_pileup) of a run to the plain
+    versions on its inputs, after the run) and runs, a list of
     dicts: name, kernel, opts (opt_args overrides), fill (run_with_fill,
     else mesh_stats).  Returns this rank's shard index, its world's load
     time, its peak device memory and each run's stats and rows (numpy),

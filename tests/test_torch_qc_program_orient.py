@@ -121,6 +121,11 @@ def test_counters_and_spans(cfg, index, tmp_path_factory):
     B = 2 * w["n_pairs"]
     assert c["rows_searched"] == B - int(stats["n_filtered"]) > 0
     assert 0 <= c["first_pass_fallback"] <= c["rows_searched"]
+    # the native engine redoes every fallback row (none is filtered), in
+    # a span inside the redo's
+    assert c["redo_rows"] == c["first_pass_fallback"] > 0
+    assert c["redo_oracle_rows"] == 0
+    assert t["program.host_redo"] >= t["program.host_redo.native"] > 0
     for p in ("first_pass", "fill_pass"):
         sr = c[p]["search"]
         assert sr["rows"] == c["rows_searched"] and sr["launches"] == 1
@@ -137,5 +142,6 @@ def test_counters_and_spans(cfg, index, tmp_path_factory):
     # the search is the same in both passes: the fill replaces its output
     assert c["first_pass"]["search"] == c["fill_pass"]["search"]
     qp.run_with_fill(w, pileup_cap=cfg["pileup_cap"], kernel=cfg["kernel"])
-    assert set(qp.LAST_RUN_STATS["counts"]) == {"rows_searched",
-                                                "first_pass_fallback"}
+    assert set(qp.LAST_RUN_STATS["counts"]) == {
+        "rows_searched", "first_pass_fallback", "redo_rows",
+        "redo_oracle_rows"}
