@@ -389,28 +389,20 @@ def expand_seq(p: Read, q: Read, mode: int) -> None:
     p.filtered = False
 
 
-DEVICE_SW_DEFAULT = False  # the align driver sets True in device mode
-
-
-def _batch_local_sw(text: np.ndarray, todo: list, device=None) -> dict:
+def _batch_local_sw(text: np.ndarray, todo: list, device=None,
+                    device_sw: bool = False) -> dict:
     """Run every precheck-passing mate-rescue SW window through the
-    threaded native sw_local_batch -- or through the CUDA SW kernel on
-    `device` ("cuda" when None; ops/sw_kernels.sw_local_batch_device:
-    fwd+rev DP passes on the device with the exact freeze-F recurrence,
-    host global path),
-    which is pinned result-identical to the native/host path.  The device
-    kernel is the DEFAULT whenever the align driver engaged device-QC mode
-    (DEVICE_SW_DEFAULT); FQ_DEVICE_SW=1/0 forces it on/off.
+    threaded native sw_local_batch -- or, with `device_sw` (the align
+    driver's device-QC mode), through the CUDA SW kernel on `device`
+    ("cuda" when None; ops/sw_kernels.sw_local_batch_device: fwd+rev DP
+    passes on the device with the exact freeze-F recurrence, host global
+    path), which is pinned result-identical to the native/host path.
     Returns {(pair_idx, k): (score, cigar, coords)}; empty dict when
     neither fast path is available (bwa_sw_core then computes each job
     itself)."""
-    import os as _os_env
-
     from ..native import get_sw_lib
 
-    sw_env = _os_env.environ.get("FQ_DEVICE_SW", "")
-    use_device_sw = sw_env == "1" or (sw_env != "0" and DEVICE_SW_DEFAULT)
-    if use_device_sw and todo:
+    if device_sw and todo:
         from ..ops.sw_kernels import sw_local_batch_device
 
         l_pac = len(text)
@@ -491,9 +483,9 @@ def _batch_local_sw(text: np.ndarray, todo: list, device=None) -> dict:
 
 def bwa_paired_sw(text: np.ndarray, pairs: list[tuple[Read, Read]],
                   popt: PeOpt, ii: IsizeInfo, mode: int,
-                  device=None) -> None:
+                  device=None, device_sw: bool = False) -> None:
     """bwape.c:463-: mate rescue via local SW in the expected window;
-    `device` is where the SW kernel runs when it is engaged."""
+    with `device_sw` the SW kernel runs on `device` (_batch_local_sw)."""
     if not popt.is_sw or ii.avg < 0.0:
         return
     l_pac = len(text)
@@ -539,7 +531,7 @@ def bwa_paired_sw(text: np.ndarray, pairs: list[tuple[Read, Read]],
 
     # Phase 2: one threaded native sw_local pass over every window
     # (results identical to the per-pair calls; {} without the native lib).
-    pre = _batch_local_sw(text, todo, device)
+    pre = _batch_local_sw(text, todo, device, device_sw)
 
     # Phase 3 (bwape.c:508-560): exact per-pair selection/update order.
     for idx, (p, jobs) in enumerate(todo):

@@ -32,8 +32,8 @@ import numpy as np
 import torch
 
 from ..align.core import Aln
-from ..align.engine import HostEngine
 from ..align.opts import GapOpt, bwa_cal_maxdiff
+from ..align.sample_setup import exact_engine
 from ..index.builder import ReducedIndex
 from ..utils.bounds import search_bytes
 from ..utils.device import resolve_device
@@ -261,12 +261,7 @@ class BatchEngine:
         self.step_cap = (step_cap if step_cap is not None
                          else int(env("FQ_BS_STEPCAP", 0)))
         self.dev = DeviceFM.build(idx.fm_fwd, idx.fm_rev, self.device)
-        try:
-            from ..align.engine import NativeEngine
-
-            self.host = NativeEngine(idx)
-        except Exception:
-            self.host = HostEngine(idx)
+        self.host = exact_engine(idx)
         self.max_batch = max_batch
         self.last_fallback = 0
         self.last_busy = 0

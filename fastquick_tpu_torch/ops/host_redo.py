@@ -27,8 +27,9 @@ import ctypes
 import numpy as np
 import torch
 
-from ..align.engine import HostEngine, NativeEngine
+from ..align.engine import NativeEngine
 from ..align.opts import bwa_cal_maxdiff
+from ..align.sample_setup import exact_engine
 from ..utils import spans
 from .qc_full import pack_host_hits
 from .search_kernels import A_MAX
@@ -129,20 +130,11 @@ def _native_hits(world, engine: NativeEngine, rows: np.ndarray):
     return kept, b, j, hits, len(over)
 
 
-def default_engine(idx):
-    """The exact engine for fallback reads: native, else host (when the
-    native aligner's library is unavailable)."""
-    try:
-        return NativeEngine(idx)
-    except RuntimeError:
-        return HostEngine(idx)
-
-
 def fill(world, engine, fb: np.ndarray, lo: int, B: int, dev):
     """The second pass's fill for a block of nb = len(fb) rows that starts
     at world row lo (rows from B on are padding, with no read), from the
     block's first-pass fallback flags fb: the fallback rows redone by
-    `engine` (None: default_engine) and packed as pack_host_hits packs
+    `engine` (None: exact_engine) and packed as pack_host_hits packs
     them, as (fb_n (nb,), fb_rows (nb, A_MAX, 3)) int32 on dev.  Also
     returns the counts ``redo_rows`` (rows the engine redid: the fallback
     rows not filtered) and ``redo_oracle_rows`` (of them, the rows the
@@ -151,7 +143,7 @@ def fill(world, engine, fb: np.ndarray, lo: int, B: int, dev):
     rows_idx = np.nonzero(fb)[0]
     rows_idx = rows_idx[lo + rows_idx < B]
     if len(rows_idx) and engine is None:
-        engine = default_engine(world["idx"])
+        engine = exact_engine(world["idx"])
     if not isinstance(engine, NativeEngine):
         reads = [copy.copy(world["reads"][lo + b]) for b in rows_idx]
         if reads:

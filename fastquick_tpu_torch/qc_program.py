@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from .align.opts import GapOpt, PeOpt, bwa_cal_maxdiff
+from .align.sample_setup import index_options, sample_collector
 from .ops import host_redo
 from .ops.qc_full import (
     build_site_tables,
@@ -143,23 +144,15 @@ def world_from_files(tmp, idx_prefix, fq1, fq2, fname1, fname2,
     reads (``reads``, in row order) and their host planes (``host_rows``)
     for run_with_fill's host redo."""
     from .align.seqs import FastqReader, read_batch
-    from .index.builder import load_index, read_param
+    from .index.builder import load_index
     from .ops.fm import DeviceFM
     from .ops.kmer import load_kmer_bitmaps
-    from .stats.keyed_collector import KeyedStatCollector
 
     dev_t = resolve_device(device)
-    new_ref = f"{idx_prefix}.FASTQuick.fa"
-    params = read_param(new_ref)
-    opt = GapOpt()
-    opt.num_variant_long = params["NUM_VAR_LONG"]
-    opt.num_variant_short = params["NUM_VAR_SHORT"]
-    opt.flank_len = params["SHORT_FLANK_LENGTH"]
-    opt.flank_long_len = params["LONG_FLANK_LENGTH"]
+    new_ref, opt, _ = index_options(idx_prefix)
     popt = PeOpt()
     idx = load_index(new_ref)
-    collector = KeyedStatCollector()
-    collector.restore_vcf_sites(new_ref, opt)
+    collector = sample_collector(new_ref, opt)
     tables = build_site_tables(idx, collector, opt, dev_t)
     fm = DeviceFM.build(idx.fm_fwd, idx.fm_rev, dev_t)
 
@@ -223,11 +216,9 @@ def write_product(prefix, acc, rows, names, world) -> list[str]:
     the written paths, sorted."""
     from .stats.collector import FileStat
     from .stats.device_merge import populate_from_device
-    from .stats.keyed_collector import KeyedStatCollector
 
     idx, opt = world["idx"], world["opt"]
-    collector = KeyedStatCollector()
-    collector.restore_vcf_sites(world["new_ref"], opt)
+    collector = sample_collector(world["new_ref"], opt)
     acc = {k: _numpy(v) for k, v in acc.items() if not k.startswith("_")}
     populate_from_device(collector, acc)
     collector.insert_size_dist = [int(x) for x in acc["isize_dist"]]
@@ -351,7 +342,7 @@ def run_with_fill(world, engine=None, pileup_cap: int = 64,
                   kernel: str = "resident", times: dict | None = None,
                   mesh=None):
     """The two-dispatch recipe: run the step once, redo its fallback reads
-    with `engine` (host_redo.default_engine), pack their hit lists
+    with `engine` (sample_setup.exact_engine), pack their hit lists
     (ops/host_redo: as arrays for a NativeEngine, through Read objects for
     another engine) and run again with them as fb_fill, so every read
     carries exact hits and the drand48 stream consumes them in read
@@ -446,7 +437,7 @@ def mesh_job(mesh, spec: dict) -> dict:
     idx_prefix, fq1, fq2), device, L, bitmaps, pileup_cap, out_dir (rank
     0 writes each run's product files there, prefixed by its name),
     engine ("native": the fill's exact redo is the native engine's, else
-    host_redo.default_engine's), check_kernels (hold each pairing sweep
+    sample_setup.exact_engine's), check_kernels (hold each pairing sweep
     and each accumulation (accumulate_pileup) of a run to the plain
     versions on its inputs, after the run) and runs, a list of
     dicts: name, kernel, opts (opt_args overrides), fill (run_with_fill,

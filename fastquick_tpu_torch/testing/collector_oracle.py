@@ -46,12 +46,11 @@ def align_products(prefix: str, rows: dict, world: dict) -> list[str]:
     from ..align.core import BWA_TYPE_UNIQUE
     from ..align.device_qc import DeviceDenseStats
     from ..align.refine import bwa_cal_md1
+    from ..align.sample_setup import sample_collector
     from ..stats.collector import FileStat
-    from ..stats.keyed_collector import KeyedStatCollector
 
     idx, opt = world["idx"], world["opt"]
-    coll = KeyedStatCollector()
-    coll.restore_vcf_sites(world["new_ref"], opt)
+    coll = sample_collector(world["new_ref"], opt)
     coll.dense_device = DeviceDenseStats(idx, coll, opt, world["device"])
     for row, pos, strand, mapq in counted_rows(rows, world["n_pairs"]):
         p = copy.copy(world["reads"][row])

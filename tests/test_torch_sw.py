@@ -2,9 +2,9 @@
 against fastquick_tpu's numpy spec and the Pallas SW kernel (interpret
 mode); the port's mate-rescue glue against align/dp.local_align; the SW
 kernel's wavefront, built for the host with g++, against the plain
-version; an edge batch against the spec; and the device-mode default of
-the mate-rescue route.  Every
-comparison is exact."""
+version; an edge batch against the spec; and the mate-rescue route,
+which takes the device only in device-QC mode.  Every comparison is
+exact."""
 
 import ctypes
 import shutil
@@ -153,9 +153,9 @@ def test_sw_edge_batch(impl):
 
 
 def test_device_sw_default_on_in_device_mode(monkeypatch):
-    """As in fastquick_tpu: the SW kernel is the default mate-rescue route
-    when the driver engaged device-QC mode, FQ_DEVICE_SW=0 opts out, and
-    the jobs go to the device the driver chose."""
+    """As in fastquick_tpu: with device_sw (the driver's device-QC mode)
+    the mate-rescue jobs go to the SW kernel on the device the driver
+    chose; without it they stay off the device."""
     from fastquick_tpu_torch.align import pe
     from fastquick_tpu_torch.ops import sw_kernels
 
@@ -170,28 +170,49 @@ def test_device_sw_default_on_in_device_mode(monkeypatch):
         len = 40
 
     todo = [(([_R(), _R()]), [(100, 200, text[100:140].copy()), None])]
-    monkeypatch.setattr(pe, "DEVICE_SW_DEFAULT", True)
-    monkeypatch.delenv("FQ_DEVICE_SW", raising=False)
-    pe._batch_local_sw(text, todo, "cpu")
+    pe._batch_local_sw(text, todo, "cpu", device_sw=True)
     assert calls == [(1, "cpu")], calls
 
     calls.clear()
-    monkeypatch.setenv("FQ_DEVICE_SW", "0")
+    pe._batch_local_sw(text, todo, "cpu", device_sw=False)
     pe._batch_local_sw(text, todo, "cpu")
-    assert not calls, "FQ_DEVICE_SW=0 must opt out of the device kernel"
+    assert not calls, "the device kernel is taken only with device_sw"
 
 
-def test_align_restores_device_sw_default_when_it_raises(monkeypatch):
-    """Device QC mode turns the SW kernel on for one align only: an align
-    that raises leaves later aligns in the process on their own route."""
-    from fastquick_tpu_torch.align import driver, pe
+@pytest.fixture(scope="module")
+def small_world(tmp_path_factory):
+    from fastquick_tpu_torch.testing.synthworld import build_synth_pe_world
 
-    def failing_align(argv):
-        pe.DEVICE_SW_DEFAULT = True
-        raise RuntimeError("align failed")
+    return build_synth_pe_world(tmp_path_factory.mktemp("torch_sw_route"),
+                                n_markers=12, depth=5)
 
-    monkeypatch.setattr(driver, "_run_align", failing_align)
-    assert pe.DEVICE_SW_DEFAULT is False
-    with pytest.raises(RuntimeError, match="align failed"):
-        driver.run_align([])
-    assert pe.DEVICE_SW_DEFAULT is False
+
+@pytest.mark.parametrize("mode,device_route",
+                         [(["--device_qc"], True),
+                          (["--engine", "native"], False)])
+def test_align_rescues_on_the_device_only_in_device_qc_mode(
+        small_world, tmp_path, monkeypatch, mode, device_route):
+    """A CPU align takes the SW kernel's route (its plain version on
+    --device cpu) for mate rescue in device-QC mode and the threaded
+    native sw_local_batch in any other."""
+    from fastquick_tpu_torch.cli import main
+    from fastquick_tpu_torch.ops import sw_kernels
+
+    monkeypatch.setenv("FQ_BS_STEPCAP", "400")  # a short plain search
+    calls = []
+    device_sw = sw_kernels.sw_local_batch_device
+
+    def recorded(jobs, device):
+        calls.append((len(jobs), device))
+        return device_sw(jobs, device)
+
+    monkeypatch.setattr(sw_kernels, "sw_local_batch_device", recorded)
+    w = small_world
+    assert main(["align", "--fastq_1", w["fq1"], "--fastq_2", w["fq2"],
+                 "--index_prefix", w["idx_prefix"], "--out_prefix",
+                 str(tmp_path / "out"), "--device", "cpu", *mode]) == 0
+    if device_route:
+        assert calls and all(d == "cpu" for _, d in calls), calls
+        assert sum(n for n, _ in calls) > 0, calls
+    else:
+        assert not calls, calls
