@@ -90,10 +90,14 @@ Phases (any failure raises and the script exits non-zero):
    at qc_full's defaults (pool 256, chain 4, step cap 64 L) and with the
    scan kernel (chain 1, pool 512, cap 768); after the fill pass both have
    no fallback left and must agree on every accumulator, n_pcr_dup, every
-   row and every product file.  The exact redo is the native engine's.
-   Each run logs its first pass's fallback, its stages' wall times (the
-   card synced at each boundary), reads a second, its counters and its
-   launches, zeroed right before it, with its pairing, second_pass and
+   row and every product file.  The exact redo is the card's retry of
+   the pool overflows, then the native engine's; each run's fill is held
+   bit-identical to the native engine's object route on every fallback
+   row and to the Python oracle's on 256 of them, with the retry's
+   counters and its launches' times by CUDA events.  Each run logs its
+   first pass's fallback, its stages' wall times (the card synced at
+   each boundary), reads a second, its counters and its launches,
+   zeroed right before it, with its pairing, second_pass and
    drand48 stages apart, and the fill pass's pairing stage split into
    its isize inference, two expansions and sweep by CUDA events around
    them; its pairing kernel launches must equal the sweeps it ran.
@@ -131,14 +135,15 @@ Phases (any failure raises and the script exits non-zero):
    (qc_program.dryrun_multichip): all 13 product files byte-identical.
    The production files at mesh-2, run_with_fill with the resident
    kernel at qc_full's defaults and with the scan kernel, each rank
-   redoing its own fallback reads with the native engine: every
-   accumulator (n_reads aside), n_pcr_dup, row, _drand_state and the 13
-   product files identical to phase 5's single-device runs (made here
-   when phase 5 did not run), every rank equal, each rank's width,
-   search (chain 4) or scan and drand48 kernels launched, and each of its
-   pairing sweeps, one launch each, and each of its accumulations (with
-   its marker_base; a walk and an order launch each) held to the plain
-   versions on its own inputs after its run.  Each rank logs
+   redoing its own fallback reads (the card's retry, then the native
+   engine): every accumulator (n_reads aside), n_pcr_dup, row,
+   _drand_state and the 13 product files identical to phase 5's
+   single-device runs (made here when phase 5 did not run), every rank
+   equal, each rank's width, search (chain 4) or scan and drand48
+   kernels launched, and each of its pairing sweeps, one launch each,
+   and each of its accumulations (with its marker_base; a walk and an
+   order launch each) held to the plain versions on its own inputs
+   after its run.  Each rank logs
    its world's load time, stage times (with "exchange": the collectives
    and the merge, waiting for the slowest rank included), whole wall
    time, launches and peak device memory.  Then DeviceLLK sharded over 2
@@ -233,6 +238,9 @@ CHAIN_CAP = 256
 QC_POOL, QC_CHAIN, QC_CAP_PER_BASE = 256, 4, 64
 # production reads the program phase's plain search redoes (evenly spaced)
 PROGRAM_SEARCH_CHECK = 4096
+# fallback rows of a production fill the Python oracle (HostEngine) redoes
+# (evenly spaced; the native engine's object route takes all of them)
+PROGRAM_FILL_ORACLE = 256
 # the pairing kernel's shapes: qc_step_full's first pass (a batch's pairs
 # at k_occ 32) and its second (ovf_cap pairs at k_occ2 512)
 PAIRING_SHAPES = ((100_000, 32), (64, 512))
@@ -1765,6 +1773,98 @@ def _check_search(call, name: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _recording_fill(calls: dict):
+    """Record run_with_fill's fill (ops/host_redo.fill): its fallback bits,
+    block and output (on the host) and counters in calls["fill"], and each
+    launch of the card's retry by CUDA events around it in
+    calls["retry_events"]."""
+    import torch
+
+    from fastquick_tpu_torch.ops import host_redo
+
+    fill, search = host_redo.fill, host_redo.resident_search
+    events = calls.setdefault("retry_events", [])
+
+    def record_fill(world, engine, fb, lo, B, dev):
+        out, counts = fill(world, engine, fb, lo, B, dev)
+        calls.setdefault("fill", []).append(
+            ((fb.copy(), lo, B), tuple(t.cpu() for t in out), counts))
+        return out, counts
+
+    def timed_search(fm, P, **kw):
+        e = (torch.cuda.Event(enable_timing=True),
+             torch.cuda.Event(enable_timing=True))
+        e[0].record()
+        out = search(fm, P, **kw)
+        e[1].record()
+        events.append((P.NP, kw["seqs0"].shape[0], *e))
+        return out
+
+    with mock.patch.object(host_redo, "fill", record_fill), \
+            mock.patch.object(host_redo, "resident_search", timed_search):
+        yield
+
+
+def _check_fill(world, calls: dict, name: str) -> dict:
+    """The fill of a production run_with_fill call against the route
+    through Read objects on the same fallback rows: the native engine's
+    align_batch on all of them and the Python oracle's (HostEngine) on
+    PROGRAM_FILL_ORACLE of them, evenly spaced, each packed by
+    pack_host_hits; bit-identical.  With the card retry's counters and its
+    launches' times."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from fastquick_tpu_torch.align.engine import HostEngine, NativeEngine
+    from fastquick_tpu_torch.ops.qc_full import pack_host_hits
+
+    ((fb, lo, B), (got_n, got_rows), counts), = calls["fill"]
+    got_n, got_rows = got_n.numpy(), got_rows.numpy()
+    rows_idx = np.nonzero(fb)[0]
+    rows_idx = rows_idx[lo + rows_idx < B]
+    t0 = time.perf_counter()
+    reads = [copy.copy(world["reads"][lo + b]) for b in rows_idx]
+    NativeEngine(world["idx"]).align_batch(reads, world["opt"])
+    want_n, want_rows = pack_host_hits(reads, rows_idx, len(fb))
+    native_s = time.perf_counter() - t0
+    if not (np.array_equal(got_n, want_n)
+            and np.array_equal(got_rows, want_rows)):
+        bad = np.nonzero((got_n != want_n)
+                         | (got_rows != want_rows).any((1, 2)))[0]
+        raise AssertionError(f"production {name}: the fill differs from the "
+                             f"native engine's object route on {len(bad)} "
+                             f"of {len(rows_idx)} rows, e.g. {bad[:8]}")
+    pick = rows_idx[np.unique(np.linspace(
+        0, len(rows_idx) - 1, min(len(rows_idx), PROGRAM_FILL_ORACLE)
+    ).astype(int))] if len(rows_idx) else rows_idx
+    t0 = time.perf_counter()
+    reads = [copy.copy(world["reads"][lo + b]) for b in pick]
+    HostEngine(world["idx"]).align_batch(reads, world["opt"])
+    o_n, o_rows = pack_host_hits(reads, np.arange(len(pick)), len(pick))
+    oracle_s = time.perf_counter() - t0
+    if not (np.array_equal(got_n[pick], o_n)
+            and np.array_equal(got_rows[pick], o_rows)):
+        raise AssertionError(f"production {name}: the fill differs from the "
+                             f"Python oracle's on its {len(pick)} rows")
+    torch.cuda.synchronize()
+    launches = [(NP, n, a.elapsed_time(b))
+                for NP, n, a, b in calls["retry_events"]]
+    out = dict(counts, rows=len(rows_idx), oracle_rows=len(pick),
+               native_s=native_s, oracle_s=oracle_s, retry_launches=launches)
+    log(f"program production, {name}: the fill of {len(rows_idx)} fallback "
+        f"rows bit-identical to the native engine's object route on all of "
+        f"them ({native_s:.1f}s) and to the Python oracle's on "
+        f"{len(pick)} ({oracle_s:.1f}s); card retry: "
+        f"card_retry_rows {counts['card_retry_rows']}, card_retry_done "
+        f"{counts['card_retry_done']}, redo_rows {counts['redo_rows']}; "
+        f"launches (slots, rows, ms by events): "
+        f"{[(NP, n, round(ms, 3)) for NP, n, ms in launches]}")
+    return out
+
+
 def _unrecorded_run(qp, world, engine, name: str, recorded) -> dict:
     """The production recipe once more with nothing recorded (the
     recording holds the first pass's planes and search inputs until its
@@ -1878,9 +1978,11 @@ def phase_program(work: Path, logf, seed: int, pairs: int,
         times = {}
         seg0 = _segments()
         t0 = time.perf_counter()
-        with _recording(calls), recorded_launches(calls["acc"]):
+        with _recording(calls), recorded_launches(calls["acc"]), \
+                _recording_fill(calls):
             stats, rows, fb1 = qp.run_with_fill(world, engine=engine,
                                                 kernel=name, times=times)
+        retry_s = qp.LAST_RUN_STATS["stage_t"].get("program.host_redo.card")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         alloc = _seg_delta(seg0, _segments())
@@ -1932,6 +2034,11 @@ def phase_program(work: Path, logf, seed: int, pairs: int,
             f"the two expansions at k_occ {k_occ} "
             f"{split['expansion']:.4f} ms, the sweep {split['sweep']:.4f} "
             f"ms")
+        res[name]["fill_check"] = _check_fill(world, calls, name)
+        res[name]["fill_check"]["retry_span_s"] = retry_s
+        log(f"program production, {name}: span program.host_redo.card "
+            f"{retry_s:.4f}s (the retry's widths, launches and waits, host "
+            f"clock), program.host_redo {times['host_redo']:.4f}s")
         res[name]["draw_checks"] = _check_draws(calls["draw"], name)
         res[name]["sweep_checks"] = _check_sweeps(calls["pairing"], name)
         res[name]["accumulate_checks"] = _check_accumulates(

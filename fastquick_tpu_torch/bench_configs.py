@@ -20,8 +20,9 @@ and holds what it made to a second run:
   200,000 reads as one batch (the one-program step), at qc_full's
   defaults (resident kernel: pool 256, chain 4, step cap 64 L) and with
   the scan kernel (chain 1, pool 512, cap 768), the exact redo by the
-  native engine: every accumulator, row and product file of the two runs
-  identical.  The world's load is reported apart and not counted;
+  card's retry and the native engine: every accumulator, row and product
+  file of the two runs identical.  The world's load is reported apart and
+  not counted;
 - ``example``: the bundled example's index, align and pop+con; it needs
   the reference tree's ``example/`` and ``resource/`` under
   ``$FQ_REFERENCE`` and raises FileNotFoundError without them.

@@ -70,6 +70,16 @@ __global__ void __launch_bounds__(FQ_SEARCH_THREADS)
   fq_search_block<true>(fm, P, ck, pool, freel, out);
 }
 
+// The one-program step's retry of its first pass's pool overflows at a
+// deeper slab (ops/host_redo.py): the same body under a name of its own,
+// so a trace tells its launches from the passes' search launches.
+template <bool kChain>
+__global__ void __launch_bounds__(FQ_SEARCH_THREADS)
+    fq_search_retry_kernel(FmView fm, SearchParams P, FqChunk ck,
+                           FqSlot* pool, uint16_t* freel, FqOut out) {
+  fq_search_block<kChain>(fm, P, ck, pool, freel, out);
+}
+
 // The share of each SM's unified L1/shared memory to give shared memory
 // for `blocks` blocks: what the blocks an SM will hold need (1 KB a block
 // is the system's), so the rest stays L1 cache for the width rows, the
@@ -92,6 +102,36 @@ static cudaError_t fq_search_carveout(K kernel, int blocks) {
                               pct < 100 ? pct : 100);
 }
 
+typedef void (*FqSearchKernel)(FmView, SearchParams, FqChunk, FqSlot*,
+                               uint16_t*, FqOut);
+
+static int fq_search_run(bool retry, const int32_t* tab,
+                         const int32_t* fm_hp, const int32_t* sp,
+                         const uint8_t* seqs, const int32_t* lens,
+                         const int32_t* md, const int32_t* use_seed,
+                         const int32_t* n_n, int N, int32_t* widths,
+                         const int32_t* seed_w, void* pool, void* freel,
+                         int32_t* alns, int32_t* n_aln, int32_t* fb,
+                         int32_t* steps, int32_t* hwm, void* stream) {
+  if (N > 0) {
+    const int blocks = (N + FQ_SEARCH_THREADS - 1) / FQ_SEARCH_THREADS;
+    const SearchParams P = search_params(sp);
+    FqSearchKernel kernel;
+    if (retry)
+      kernel = P.CH > 1 ? fq_search_retry_kernel<true>
+                        : fq_search_retry_kernel<false>;
+    else
+      kernel = P.CH > 1 ? fq_search_chain_kernel : fq_search_kernel;
+    const cudaError_t e = fq_search_carveout(kernel, blocks);
+    if (e != cudaSuccess) return (int)e;
+    const FqChunk ck = {seqs, lens, md, use_seed, n_n, N, widths, seed_w};
+    const FqOut out = {alns, n_aln, fb, steps, hwm};
+    kernel<<<blocks, FQ_SEARCH_THREADS, kSearchSmem, (cudaStream_t)stream>>>(
+        fm_view(tab, fm_hp), P, ck, (FqSlot*)pool, (uint16_t*)freel, out);
+  }
+  return (int)cudaGetLastError();
+}
+
 // seqs: (N, L) uint8 reversed codes; lens/md/use_seed/n_n: (N,) int32;
 // widths: (2N, L+1, 2) int32 (strand-0 rows first), updated in place;
 // seed_w: (2N, SL+1, 2); pool: (N, NP) slots of 4 int32; freel: (N, NP)
@@ -104,16 +144,20 @@ extern "C" int fq_search_launch(
     const int32_t* seed_w, void* pool, void* freel, int32_t* alns,
     int32_t* n_aln, int32_t* fb, int32_t* steps, int32_t* hwm,
     void* stream) {
-  if (N > 0) {
-    const int blocks = (N + FQ_SEARCH_THREADS - 1) / FQ_SEARCH_THREADS;
-    const SearchParams P = search_params(sp);
-    const auto kernel = P.CH > 1 ? fq_search_chain_kernel : fq_search_kernel;
-    const cudaError_t e = fq_search_carveout(kernel, blocks);
-    if (e != cudaSuccess) return (int)e;
-    const FqChunk ck = {seqs, lens, md, use_seed, n_n, N, widths, seed_w};
-    const FqOut out = {alns, n_aln, fb, steps, hwm};
-    kernel<<<blocks, FQ_SEARCH_THREADS, kSearchSmem, (cudaStream_t)stream>>>(
-        fm_view(tab, fm_hp), P, ck, (FqSlot*)pool, (uint16_t*)freel, out);
-  }
-  return (int)cudaGetLastError();
+  return fq_search_run(false, tab, fm_hp, sp, seqs, lens, md, use_seed, n_n,
+                       N, widths, seed_w, pool, freel, alns, n_aln, fb, steps,
+                       hwm, stream);
+}
+
+// fq_search_launch's arguments, launched as fq_search_retry_kernel.
+extern "C" int fq_search_retry_launch(
+    const int32_t* tab, const int32_t* fm_hp, const int32_t* sp,
+    const uint8_t* seqs, const int32_t* lens, const int32_t* md,
+    const int32_t* use_seed, const int32_t* n_n, int N, int32_t* widths,
+    const int32_t* seed_w, void* pool, void* freel, int32_t* alns,
+    int32_t* n_aln, int32_t* fb, int32_t* steps, int32_t* hwm,
+    void* stream) {
+  return fq_search_run(true, tab, fm_hp, sp, seqs, lens, md, use_seed, n_n,
+                       N, widths, seed_w, pool, freel, alns, n_aln, fb, steps,
+                       hwm, stream);
 }

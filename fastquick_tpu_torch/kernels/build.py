@@ -34,10 +34,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 GXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
 
-# "search_chain": the resident search kernel's chain-length build (CH > 1)
-launch_counts = {"width": 0, "search": 0, "search_chain": 0, "scan": 0,
-                 "sw": 0, "drand48": 0, "pairing": 0, "accumulate": 0,
-                 "pileup": 0}
+# "search_chain": the resident search kernel's chain-length build (CH > 1);
+# "search_retry": its retry entry (ops/host_redo.py), at any CH
+launch_counts = {"width": 0, "search": 0, "search_chain": 0,
+                 "search_retry": 0, "scan": 0, "sw": 0, "drand48": 0,
+                 "pairing": 0, "accumulate": 0, "pileup": 0}
 build_info: dict = {}
 
 _lock = threading.Lock()
@@ -146,6 +147,9 @@ def cuda_library() -> ctypes.CDLL:
                                             _P]
             lib.fq_search_launch.restype = _I
             lib.fq_search_launch.argtypes = ([_P] * 8 + [_I] + [_P] * 10)
+            lib.fq_search_retry_launch.restype = _I
+            lib.fq_search_retry_launch.argtypes = \
+                lib.fq_search_launch.argtypes
             lib.fq_scan_launch.restype = _I
             lib.fq_scan_launch.argtypes = ([_P] * 8 + [_I] + [_P] * 8
                                            + [_I] * 3 + [_P] * 3)

@@ -246,7 +246,7 @@ class _Stages:
                 self.open.pop()
 
 
-def _search_params(opt_args: dict, L: int) -> SearchParams:
+def search_params(opt_args: dict, L: int) -> SearchParams:
     """The search parameters qc_step_full takes from opt_args (the
     reference's defaults: pool 256, chain 4, step cap 64 * L)."""
     return SearchParams(
@@ -333,7 +333,7 @@ def qc_step_full(fm_arrays: DeviceFM, tables: SiteTables, opt_args: dict,
         seed_len = int(opt_args.get("seed_len", 32))
         use_seed = (lens > seed_len) if opt_args.get("use_seed", True) \
             else torch.zeros(B, dtype=torch.bool, device=dev)
-        P = _search_params(opt_args, L)
+        P = search_params(opt_args, L)
         if kernel == "scan" and P.CH != 1:
             raise ValueError("pallas scan path supports chain=1 only")
         if kernel not in ("resident", "scan"):

@@ -138,7 +138,7 @@ def resident_search(fm: DeviceFM, P: SearchParams, seqs0: torch.Tensor,
                     lens: torch.Tensor, md: torch.Tensor,
                     use_seed: torch.Tensor, n_n: torch.Tensor,
                     widths: torch.Tensor, seed_w: torch.Tensor,
-                    hwm: torch.Tensor | None = None):
+                    hwm: torch.Tensor | None = None, retry: bool = False):
     """Inexact search of a chunk of N reads.
 
     seqs0: (N, L) reversed read codes (strand 0; strand 1 is their
@@ -147,7 +147,9 @@ def resident_search(fm: DeviceFM, P: SearchParams, seqs0: torch.Tensor,
     scratch: the CUDA kernel applies gap_shadow to it in place; seed_w:
     (2N, SL+1, 2).  hwm: an optional (N,) int32 tensor that receives each
     read's pool high-water mark (the most slots it held at once; 0 for a
-    dead read).
+    dead read).  retry: launch the kernel's retry entry
+    (``fq_search_retry_kernel``, counted in ``launch_counts
+    ["search_retry"]``), the same search under a name of its own.
 
     Returns (n_aln, alns (N, A_MAX, 3) [mm|go<<6|ge<<12|a<<18|score<<19,
     k, l], fb, steps), all int32, raw per read (n_aln is not zeroed for
@@ -179,13 +181,15 @@ def resident_search(fm: DeviceFM, P: SearchParams, seqs0: torch.Tensor,
     sp = P.to_array()
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = build.ptr
-    rc = lib.fq_search_launch(
+    launch = lib.fq_search_retry_launch if retry else lib.fq_search_launch
+    rc = launch(
         p(fm.kernel_table()), hp.ctypes.data_as(ctypes.c_void_p),
         sp.ctypes.data_as(ctypes.c_void_p), p(seqs8), p(lens32), p(md32),
         p(us32), p(nn32), N, p(widths), p(seed32), p(pool), p(freel),
         p(alns), p(n_aln), p(fb), p(steps), p(hwm), ctypes.c_void_p(stream))
     build.check(rc, "search")
-    build.launch_counts["search_chain" if P.CH > 1 else "search"] += 1
+    build.launch_counts["search_retry" if retry else
+                        "search_chain" if P.CH > 1 else "search"] += 1
     return n_aln, alns, fb, steps
 
 

@@ -173,8 +173,8 @@ def production_spec(tmp: str, pairs: int = 100_000, device: str = "cuda",
     """Build testing/synthworld's production world (10,000 markers,
     `pairs` pairs of 150 bp) and its index under tmp; returns mesh_job's
     spec for it at qc_full's defaults (pool 256, chain 4, cap 64 L), the
-    k-mer filter on and the native engine's exact redo: run_with_fill
-    twice, the first a warm-up."""
+    k-mer filter on and the exact redo by the card's retry and the native
+    engine: run_with_fill twice, the first a warm-up."""
     from ..testing.synthworld import build_production_world
 
     w = build_production_world(tmp, seed=seed, n_pairs=pairs)

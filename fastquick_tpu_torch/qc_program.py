@@ -10,7 +10,8 @@ mesh half (``_mesh_stats``, ``_diff_world``, ``dryrun_multichip``): each
 rank runs its block of the rows through parallel/mesh.
 make_sharded_qc_full_step.  ``run_with_fill`` is the two-dispatch recipe
 that makes the drand48 stream exact on a batch with fallback reads: run
-once, redo the fallback reads with the exact native (else host) engine,
+once, redo the fallback reads (the pool overflows searched again on the
+card at a deeper slab, the rest by the exact native, else host, engine),
 pack their hit lists and run again with them filled in (on a mesh, each
 rank redoes its own rows).
 
@@ -59,11 +60,15 @@ _STATUS = ["PropPair", "PartialPair", "FwdOnly", "RevOnly", "NotPair",
 # seconds of every span of the call (utils/spans.py: ``program``, its
 # phases ``program.first_pass``, ``program.host_redo``,
 # ``program.fill_pass`` and the step's stages inside the passes, summed
-# over both; ``program.host_redo.native`` the native engine's search in
-# the redo), "counts" the batch's rows searched, first-pass fallback rows,
-# the rows the redo's exact engine took (``redo_rows``) and, of them, the
-# rows its Python oracle took (``redo_oracle_rows``) and, when the call
-# was given `times`, each pass's work
+# over both; inside ``program.host_redo``, ``program.host_redo.card`` the
+# retry of the pool overflows on the card and ``program.host_redo.native``
+# the native engine's search), "counts" the batch's rows searched,
+# first-pass fallback rows, the rows that entered the card's retry
+# (``card_retry_rows``), the rows it finished (``card_retry_done``), its
+# launches (``card_retry_launches``), the rows the redo's exact engine took
+# (``redo_rows``) and, of them, the rows its Python oracle took
+# (``redo_oracle_rows``) and, when the call was given `times`, each pass's
+# work
 # (``first_pass``, ``fill_pass``: qc_step_full's counts, read back once).
 LAST_RUN_STATS: dict = {}
 
@@ -342,9 +347,11 @@ def run_with_fill(world, engine=None, pileup_cap: int = 64,
                   kernel: str = "resident", times: dict | None = None,
                   mesh=None):
     """The two-dispatch recipe: run the step once, redo its fallback reads
-    with `engine` (sample_setup.exact_engine), pack their hit lists
-    (ops/host_redo: as arrays for a NativeEngine, through Read objects for
-    another engine) and run again with them as fb_fill, so every read
+    (ops/host_redo.fill: the pool overflows searched again on the card at
+    deeper slabs, the rest by `engine`, sample_setup.exact_engine by
+    default), pack their hit lists (as arrays for a NativeEngine, through
+    Read objects for another engine) and run again with them as fb_fill,
+    so every read
     carries exact hits and the drand48 stream consumes them in read
     order.  On a mesh each rank redoes the fallback reads of its own rows
     and the second pass takes each rank's fill.  Returns (stats, rows, the first pass's
@@ -361,7 +368,7 @@ def run_with_fill(world, engine=None, pileup_cap: int = 64,
             first, _, pr = mesh_stats(
                 world, mesh, pileup_cap, kernel, per_read=True,
                 counts=None if work is None else work["first_pass"])
-            fb = pr["fallback"].cpu().numpy() != 0
+            fb = pr["fallback"].cpu().numpy()
             n_reads, n_filtered, n_fb = torch.stack(
                 [first[k] for k in ("n_reads", "n_filtered",
                                     "n_fallback")]).tolist()

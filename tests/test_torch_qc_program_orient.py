@@ -121,11 +121,18 @@ def test_counters_and_spans(cfg, index, tmp_path_factory):
     B = 2 * w["n_pairs"]
     assert c["rows_searched"] == B - int(stats["n_filtered"]) > 0
     assert 0 <= c["first_pass_fallback"] <= c["rows_searched"]
-    # the native engine redoes every fallback row (none is filtered), in
-    # a span inside the redo's
-    assert c["redo_rows"] == c["first_pass_fallback"] > 0
+    # the card's retry takes the pool overflows, the native engine the
+    # rest of the fallback rows (none is filtered), each in a span inside
+    # the redo's
+    assert 0 < c["card_retry_rows"] <= c["first_pass_fallback"]
+    assert 0 < c["card_retry_done"] <= c["card_retry_rows"]
+    assert c["card_retry_launches"] >= 1
+    assert c["card_retry_done"] + c["redo_rows"] == c["first_pass_fallback"]
     assert c["redo_oracle_rows"] == 0
-    assert t["program.host_redo"] >= t["program.host_redo.native"] > 0
+    assert t["program.host_redo"] >= t["program.host_redo.card"] > 0
+    assert ("program.host_redo.native" in t) == (c["redo_rows"] > 0)
+    assert t["program.host_redo"] >= t["program.host_redo.card"] + t.get(
+        "program.host_redo.native", 0.0)
     for p in ("first_pass", "fill_pass"):
         sr = c[p]["search"]
         assert sr["rows"] == c["rows_searched"] and sr["launches"] == 1
@@ -143,5 +150,6 @@ def test_counters_and_spans(cfg, index, tmp_path_factory):
     assert c["first_pass"]["search"] == c["fill_pass"]["search"]
     qp.run_with_fill(w, pileup_cap=cfg["pileup_cap"], kernel=cfg["kernel"])
     assert set(qp.LAST_RUN_STATS["counts"]) == {
-        "rows_searched", "first_pass_fallback", "redo_rows",
+        "rows_searched", "first_pass_fallback", "card_retry_rows",
+        "card_retry_done", "card_retry_launches", "redo_rows",
         "redo_oracle_rows"}

@@ -211,6 +211,43 @@ def test_search_body_host_build_any_pull_order():
     assert int((want[2] != 0).sum()) > 0, "world should exercise fallbacks"
 
 
+@pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
+def test_search_body_depth_independent(tmp_path):
+    """A read the search finishes has one result at any pool depth, which
+    the one-program step's retry of pool overflows (ops/host_redo.py)
+    rests on: the g++ build at 2,048 and 32,767 slots, on the program
+    cell's tiny world (pool 16, chain 4), gives every row that finishes at
+    both the same hits, steps and pool high-water mark, and every row the
+    pool of 16 stopped finishes at both; the rows that finish at 16 keep
+    theirs."""
+    from fastquick_tpu_torch.ops.qc_full import search_params
+    from fastquick_tpu_torch.ops.search_kernels import FB_POOL
+    from test_torch_host_redo import program_world
+
+    w = program_world(str(tmp_path))
+    seqs, _, _, lens = w["arrays"]
+    P = search_params(w["opt_args"], seqs.shape[1])
+    assert (P.NP, P.CH) == (16, 4)
+    lens = lens.long()
+    inp = tbs.read_inputs(w["fm"], seqs, lens, w["md_table"].long()[lens],
+                          lens > P.SL, P)
+    order = np.arange(seqs.shape[0])
+    first = _host_search(w["fm"], P, inp, order)
+    deep = [_host_search(w["fm"], dataclasses.replace(P, NP=n), inp, order)
+            for n in (2048, 32767)]
+    both = (deep[0][2] == 0) & (deep[1][2] == 0)
+    pool = first[2] == FB_POOL
+    assert int(pool.sum()) > 50, "pool 16 stopped few rows: vacuous"
+    assert bool(both[pool].all())
+    assert int((deep[0][0][both] > 0).sum()) > 50, "few rows with hits"
+    for i in (0, 1, 3, 4):  # n_aln, alns, steps, pool high-water marks
+        assert torch.equal(deep[0][i][both], deep[1][i][both])
+    assert int(deep[0][4][pool].max()) > 16
+    done = first[2] == 0
+    for i in (0, 1, 3, 4):
+        assert torch.equal(first[i][done], deep[0][i][done])
+
+
 def _xla_search(fm, P, inp, chain):
     """fastquick_tpu's XLA _search_kernel on the chunk's inputs, every read
     on its own lane.  Returns (n_aln, alns, fb) as numpy and the busy
