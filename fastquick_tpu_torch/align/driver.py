@@ -113,6 +113,7 @@ class PairEndMapper:
         self.g_hash: dict[int, list[int]] = {}  # SA-interval position cache
         self.device_filter = device_filter and idx.kmer.thresh != 0
         self._dev_bitmaps = None
+        self.batches = 0  # read batches aligned by run()
 
     def _open_reader(self, path: str):
         """Native C++ loader fast path (parse+trim+filter); Python
@@ -146,36 +147,38 @@ class PairEndMapper:
             with span("kmer.upload"):
                 self._dev_bitmaps = load_kmer_bitmaps(
                     self.idx.kmer.byte_bitmaps(), self.device)
-        L = max(p.len for p in batch)
-        seqs = np.zeros((len(batch), L), dtype=np.uint8)
-        lens = np.zeros(len(batch), dtype=np.int32)
-        for i, p in enumerate(batch):
-            seqs[i, :p.len] = p.seq[:p.len][::-1]  # back to forward codes
-            lens[i] = p.len
-        keep = filter_reads(self._dev_bitmaps,
-                            torch.from_numpy(seqs).to(self.device),
-                            torch.from_numpy(lens).to(self.device),
-                            thresh=self.idx.kmer.thresh).cpu().numpy()
-        for i, p in enumerate(batch):
-            if not keep[i]:
-                p.filtered = True
-                # reader layout for filtered reads: full forward codes
-                p.seq = np.concatenate([p.seq[:p.len][::-1], p.seq[p.len:]])
-                p.rseq = None
+        with span("kmer.filter"):
+            L = max(p.len for p in batch)
+            seqs = np.zeros((len(batch), L), dtype=np.uint8)
+            lens = np.zeros(len(batch), dtype=np.int32)
+            for i, p in enumerate(batch):
+                seqs[i, :p.len] = p.seq[:p.len][::-1]  # back to forward codes
+                lens[i] = p.len
+            keep = filter_reads(self._dev_bitmaps,
+                                torch.from_numpy(seqs).to(self.device),
+                                torch.from_numpy(lens).to(self.device),
+                                thresh=self.idx.kmer.thresh).cpu().numpy()
+            for i, p in enumerate(batch):
+                if not keep[i]:
+                    p.filtered = True
+                    # reader layout for filtered reads: full forward codes
+                    p.seq = np.concatenate([p.seq[:p.len][::-1],
+                                            p.seq[p.len:]])
+                    p.rseq = None
 
     def _next_batch(self, reader, native: bool, batch_size: int,
                     round_no: int) -> list[Read]:
         opt = self.opt
         from .opts import BWA_MODE_COMPREAD
 
-        if native:
-            batch = reader.read_batch(batch_size,
-                                      bool(opt.mode & BWA_MODE_COMPREAD))
-        else:
-            batch = read_batch(reader,
-                               None if self.device_filter else self.idx.kmer,
-                               batch_size, opt.mode, opt.trim_qual, opt.frac,
-                               round_no)
+        with span("io.read"):
+            if native:
+                batch = reader.read_batch(batch_size,
+                                          bool(opt.mode & BWA_MODE_COMPREAD))
+            else:
+                batch = read_batch(reader, None if self.device_filter
+                                   else self.idx.kmer, batch_size, opt.mode,
+                                   opt.trim_qual, opt.frac, round_no)
         if self.device_filter:
             self._apply_device_filter(batch)
         return batch
@@ -255,6 +258,7 @@ class PairEndMapper:
                 b0, b1 = cur
                 if not b0 and not b1:
                     break
+                self.batches += 1
                 th = threading.Thread(target=prefetch, args=(round_no,))
                 th.start()
                 round_no += 1
@@ -457,6 +461,7 @@ class SingleEndMapper(PairEndMapper):
         while True:
             if not batch:
                 break
+            self.batches += 1
             th = threading.Thread(target=prefetch, args=(round_no,))
             th.start()
             round_no += 1
@@ -687,6 +692,8 @@ def _run_align(argv: list[str]) -> dict:
         isize_out = open(prefix + ".InsertSizeTable", "w")
 
     use_dev_filter = pl["device_filter"] or device_qc
+    # batches: read batches aligned, over every FASTQ pair of the call
+    stats: dict = dict(engine=engine_kind, device=str(device), batches=0)
     for fq1, fq2 in fq_pairs:
         if fq2:
             notice("Processing Pair End mapping\t%s\t%s", fq1, fq2)
@@ -705,11 +712,11 @@ def _run_align(argv: list[str]) -> dict:
                                      device=device, device_sw=device_qc)
             mapper.run(fq1, "", fsc)
         collector.add_fsc(fsc)
-        notice("%d sequences loaded, %d filtered, %d unmapped, %d retained",
-               fsc.num_read, fsc.total_filtered, fsc.bwa_unmapped,
-               fsc.total_retained)
+        stats["batches"] += mapper.batches
+        notice("%d sequences loaded, %d filtered, %d unmapped, %d retained "
+               "(%d read batches)", fsc.num_read, fsc.total_filtered,
+               fsc.bwa_unmapped, fsc.total_retained, mapper.batches)
 
-    stats: dict = dict(engine=engine_kind, device=str(device))
     with span("call.finish"):
         isize_out.close()
         sam.close()

@@ -6,6 +6,7 @@ kernel and with the scan path (``FQ_BS_PALLAS=2``).  Without ``--device
 cpu`` the port's ``align`` runs on CUDA and raises where there is none."""
 
 import filecmp
+import gzip
 import json
 
 import pytest
@@ -26,7 +27,8 @@ ALL_OUTPUTS = ("Summary", "DepthDist", "GCDist", "EmpRepDist",
 # span it nests in: None for the call itself and for the spans of the stats
 # worker and the BAM writer
 SPANS = {"call": None, "call.setup": "call", "io+filter": "call",
-         "kmer.upload": "io+filter", "search": "call",
+         "io.read": "io+filter", "kmer.upload": "io+filter",
+         "kmer.filter": "io+filter", "search": "call",
          "search.redo_wait": "search", "pe": "call", "mate-sw": "call",
          "sw.device": "mate-sw", "refine": "call", "wait.prefetch": "call",
          "wait.stats": "call", "call.finish": "call", "stats+out": None,
@@ -134,12 +136,23 @@ def test_stage_t_holds_every_span(outputs):
 def test_spans_nest_in_their_parents(outputs):
     _, stats = outputs
     st = stats["stage_t"]
-    for child, parent in (("kmer.upload", "io+filter"),
-                          ("search.redo_wait", "search"),
-                          ("sw.device", "mate-sw")):
-        assert st[child] <= st[parent], (child, parent)
+    for child, parent in SPANS.items():
+        if parent not in (None, "call"):
+            assert st[child] <= st[parent], (child, parent)
+    # the reader and the filter of every batch, inside the fetches
+    assert st["io.read"] + st["kmer.upload"] + st["kmer.filter"] <= \
+        st["io+filter"]
     assert st["io+filter"] <= st["call"]
     assert sum(st[k] for k in MAIN_CHILDREN if k != "io+filter") <= st["call"]
+
+
+def test_run_stats_count_batches(world, outputs):
+    _, stats = outputs
+    with gzip.open(world["args"][1], "rt") as fh:
+        n_reads = sum(1 for _ in fh) // 2
+    # the world fits one read batch of 262,144 pairs
+    assert stats["batches"] == 1
+    assert 0 < stats["searched"] <= n_reads
 
 
 # the traced align reads the world's first TRACED_PAIRS pairs with the
@@ -155,8 +168,6 @@ def traced(world):
     """The same align, on the world's first TRACED_PAIRS pairs, under a CPU
     torch.profiler session: the fq. events of its Chrome trace, as (name,
     thread, start, end) in us."""
-    import gzip
-
     from fastquick_tpu_torch.cli import main as torch_main
 
     tmp = world["tmp"]
